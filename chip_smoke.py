@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one H100.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device: the card's name and power limit (``nvidia-smi``), the torch and
+   CUDA versions and the compute capability, which must be (9, 0);
+2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the shapes of the serving path and beside them, with the largest
+   absolute error, the tolerance, the kernel's, the plain version's and
+   the library call's device times (CUDA graphs of many launches over
+   inputs that exceed the L2 cache, timed by CUDA events), and the bound;
+4. serve: qwen2-1.5b at full width and depth in bf16, eight requests
+   through the continuous-batching engine, with the kernel launches
+   counted over that run alone;
+5. model check: qwen2-1.5b at full width with 4 layers in fp32 — the
+   continuous engine's tokens equal the padded engine's, and one decode
+   step's logits through the kernels match the same step through the plain
+   versions on the CPU;
+6. the ``{"kernels": [...]}`` summary.
+
+The last line is ``{"ok": true, "device": {...}}``; any failure exits
+non-zero before it.  Without a CUDA device, or without the repository's
+``src/repro_torch`` beside this file, it exits non-zero and prints no
+result.  It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM rate and dense rates by
+# input type (bf16 on the tensor cores, fp32 outside them).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+L2_BYTES = 50 * 2 ** 20
+TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+       "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def device_ms(torch, fn, arg_sets, reps=100, rounds=5):
+    """Median device time of one ``fn(*args)`` call in ms.
+
+    ``reps`` calls, cycling through ``arg_sets`` (whose total size exceeds
+    the L2 cache, so inputs arrive cold), are captured in one CUDA graph
+    and replayed; the host's launch cost stays out of the time.
+    """
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn(*arg_sets[0])
+        with torch.cuda.graph(graph, stream=stream):
+            for i in range(reps):
+                fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.current_stream().wait_stream(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def copies_for(nbytes):
+    """Input copies whose total exceeds twice the L2 cache."""
+    return max(2, min(256, -(-2 * L2_BYTES // max(nbytes, 1))))
+
+
+def bound_ms(nbytes, ops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# --------------------------------------------------------------------- #
+# phase 3: kernels against their plain versions
+# --------------------------------------------------------------------- #
+
+def check_rmsnorm(torch, F, R, D, dtype, gen):
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    dev = "cuda"
+    x = torch.randn((R, D), generator=gen, device=dev).to(dtype)
+    scale = torch.randn((D,), generator=gen, device=dev)
+    out = rmsnorm_fused(x, scale, eps=1e-5)
+    ref = rmsnorm_ref(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    name = str(dtype).removeprefix("torch.")
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), **TOL[name])
+    nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
+    sets = [(x.clone(), scale.clone()) for _ in range(copies_for(nbytes))]
+    ms = device_ms(torch, lambda a, s: rmsnorm_fused(a, s, eps=1e-5), sets)
+    plain = device_ms(torch, lambda a, s: rmsnorm_ref(a, s, 1e-5), sets)
+    lib = device_ms(torch, lambda a, s: F.rms_norm(a, (D,), s, 1e-5), sets)
+    bnd, by = bound_ms(nbytes, 4 * R * D, name)
+    return {"kernel": "rmsnorm", "R": R, "D": D, "dtype": name,
+            "max_abs_err": err, "tol": TOL[name], "ok": bool(ok),
+            "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bnd, "bound_by": by}
+
+
+def attention_mask(torch, B, S, gen):
+    """Per-sequence validity: partially filled rows, one full row and one
+    fully masked row (an idle slot)."""
+    lens = torch.randint(1, S + 1, (B,), generator=gen, device="cuda")
+    lens[0] = S
+    lens[-1] = 0
+    return torch.arange(S, device="cuda")[None, :] < lens[:, None]
+
+
+def attention_bytes_ops(mask, B, S, KH, G, D, elem):
+    """Bytes and operations this mask's data needs: the K/V rows of valid
+    keys (a fully masked row averages all of V and needs no K), q, the
+    mask and the output."""
+    valid = mask.sum(dim=1).tolist()
+    rows = sum(2 * n if n else S for n in valid)
+    nbytes = (rows * KH * D + 2 * B * KH * G * D) * elem + mask.numel()
+    ops = sum(4 * KH * G * D * n for n in valid)
+    return nbytes, ops
+
+
+def check_decode_attention(torch, F, B, S, KH, G, D, dtype, gen):
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    dev = "cuda"
+    H = KH * G
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, S, KH, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, S, KH, D), generator=gen, device=dev).to(dtype)
+    mask = attention_mask(torch, B, S, gen)
+
+    def plain(q, k, v, m):
+        o = decode_attention_ref(q[:, 0].reshape(B, KH, G, D),
+                                 k.transpose(1, 2), v.transpose(1, 2), m)
+        return o.reshape(B, 1, H, D)
+
+    def library(q, k, v, m):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=m[:, None, None, :], enable_gqa=True)
+
+    out = decode_attention(q, k, v, mask, n_kv_heads=KH)
+    ref = plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    name = str(dtype).removeprefix("torch.")
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), **TOL[name])
+    elem = q.element_size()
+    nbytes, ops = attention_bytes_ops(mask, B, S, KH, G, D, elem)
+    full = (q.numel() + k.numel() + v.numel()) * elem
+    sets = [(q.clone(), k.clone(), v.clone(), mask.clone())
+            for _ in range(copies_for(full))]
+    ms = device_ms(torch, lambda *a: decode_attention(*a, n_kv_heads=KH),
+                   sets)
+    plain_ms = device_ms(torch, plain, sets)
+    lib = device_ms(torch, library, sets)
+    bnd, by = bound_ms(nbytes, ops, name)
+    return {"kernel": "decode_attention", "B": B, "S": S, "KH": KH, "G": G,
+            "D": D, "dtype": name, "max_abs_err": err, "tol": TOL[name],
+            "ok": bool(ok), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib, "bound_ms": bnd, "bound_by": by}
+
+
+# --------------------------------------------------------------------- #
+# phases 4 and 5: the serving path
+# --------------------------------------------------------------------- #
+
+SERVE = dict(max_prompt=128, max_new_tokens=32, block_size=16, n_blocks=129,
+             max_slots=8, prefill_chunk=16, prefill_batch=4)
+
+
+def serve_workload(eng, n_req, seed=0):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(32, 129, n_req)
+    budgets = rng.integers(8, 33, n_req)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, (int(n),),
+                            dtype="int32") for n in lens]
+    eng.reset()
+    for i, (p, m) in enumerate(zip(prompts, budgets)):
+        eng.submit(p, int(m), arrival=i // 2)
+    return prompts, budgets, eng.run()
+
+
+def phase_serve(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+
+    cfg = get_config("qwen2-1.5b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = lm_lib.init_params(cfg, gen, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = ContinuousEngine(cfg, params, ServeConfig(**SERVE), "cuda")
+    serve_workload(eng, 8)                    # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_fused.launches = 0
+    decode_attention.launches = 0
+    t0 = time.perf_counter()
+    prompts, budgets, res = serve_workload(eng, 8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm_fused.launches,
+                "decode_attention": decode_attention.launches}
+    st = dict(eng.stats)
+    L = cfg.n_layers
+    want = {"rmsnorm": (2 * L + 1) * (st["prefill_dispatches"]
+                                      + st["decode_steps"]),
+            "decode_attention": L * st["decode_steps"]}
+    tokens = sum(len(v) for v in res.values())
+    lat = sorted(eng.latency.values())
+    out = {"phase": "serve", "model": cfg.name, "n_layers": L,
+           "n_params": cfg.n_params(), "dtype": cfg.dtype,
+           "serve_config": SERVE, "requests": len(res),
+           "prompt_lens": [len(p) for p in prompts],
+           "budgets": [int(b) for b in budgets], "tokens": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "latency_p50_s": lat[len(lat) // 2], "latency_max_s": lat[-1],
+           "stats": st, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "init_params_s": init_s, "launches": launches,
+           "launches_expected": want}
+    emit(out)
+    if launches != want:
+        raise RuntimeError(f"kernel launches {launches} != expected {want}")
+    for rid, toks in res.items():
+        if len(toks) != int(budgets[rid]) or not (
+                (toks >= 0) & (toks < cfg.vocab_size)).all():
+            raise RuntimeError(f"request {rid} emitted {toks}")
+    if len(res) != 8:
+        raise RuntimeError(f"served {len(res)} of 8 requests")
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_model_check(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=4,
+                              dtype="float32")
+    params = lm_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+
+    # (a) continuous engine == padded engine, 4 requests
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 32), dtype=np.int32)
+    sc = ServeConfig(max_prompt=32, max_new_tokens=8, block_size=16,
+                     n_blocks=17, max_slots=4, prefill_chunk=16,
+                     prefill_batch=4)
+    padded = Engine(cfg, params, sc, "cuda").generate(prompts)
+    cont = ContinuousEngine(cfg, params, sc, "cuda").generate(prompts)
+    same = bool((padded == cont).all())
+
+    # (b) one paged decode step: kernels on the card vs plain on the CPU
+    B, bs, pages = 8, 16, 10
+    s_max = pages * bs
+    pool = lm_lib.init_paged_cache(cfg, B * pages + 1, bs, device="cuda")
+    pool_gen = torch.Generator(device="cuda").manual_seed(3)
+    for arr in pool["main"].values():
+        arr.copy_(torch.randn(arr.shape, generator=pool_gen, device="cuda"))
+    tables = 1 + np.arange(B * pages).reshape(B, pages)
+    gather = torch.as_tensor((tables[:, :, None] * bs + np.arange(bs))
+                             .reshape(B, s_max), device="cuda")
+    pos = torch.as_tensor(rng.integers(0, s_max, B), device="cuda")
+    pos[-1] = -1                                      # an idle slot
+    write = torch.where(pos >= 0, gather.gather(
+        1, pos.clamp(min=0)[:, None])[:, 0], torch.arange(B, device="cuda"))
+    step = {"pos": pos, "write": write, "gather": gather,
+            "mask": cache_lib.paged_valid_mask(pos, s_max, cfg.window)}
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 1)),
+                             device="cuda")
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(to_cpu(v) for v in tree)
+        return tree.cpu()
+
+    cpu_args = to_cpu((params, {"tokens": tokens}, pool, step))
+    logits_k, _ = lm_lib.decode_step_paged(params, cfg, {"tokens": tokens},
+                                           pool, step)
+    logits_p, _ = lm_lib.decode_step_paged(cpu_args[0], cfg, cpu_args[1],
+                                           cpu_args[2], cpu_args[3])
+    lk = logits_k.cpu()
+    err = (lk - logits_p).abs().max().item()
+    finite = bool(torch.isfinite(lk).all())
+    shape_ok = tuple(lk.shape) == (B, 1, cfg.padded_vocab)
+    out = {"phase": "model_check", "model": cfg.name, "n_layers": 4,
+           "dtype": "float32", "allow_tf32": False,
+           "continuous_equals_padded": same, "padded_tokens":
+           padded.tolist(), "decode_logits_max_abs_err": err,
+           "atol": 1e-3, "finite": finite, "shape": list(lk.shape)}
+    emit(out)
+    if not (same and finite and shape_ok and err <= 1e-3):
+        raise RuntimeError("whole-model check failed")
+
+
+# --------------------------------------------------------------------- #
+
+RMSNORM_CASES = [(R, D) for D in (1536, 3840, 48) for R in (8, 64, 4096)]
+ATTN_CASES = [  # (label, B, S, KH, G, D)
+    ("serving", 8, 160, 2, 6, 128),
+    ("long", 8, 4096, 2, 6, 128),
+    ("danube", 8, 160, 8, 4, 120),
+    ("tiny", 8, 160, 1, 3, 16),
+]
+MAIN_PATH = {"rmsnorm": (8, 1536, "bfloat16"),
+             "decode_attention": ("serving", "bfloat16")}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (REPO / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch is missing beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "src"))
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    cap = torch.cuda.get_device_capability(0)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0), "count":
+          torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "capability": list(cap)})
+    if cap != (9, 0):
+        raise RuntimeError(f"compute capability {cap}, the kernels are "
+                           f"built for sm_90a")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = {n: [ln.strip() for ln in p.with_suffix(".log").read_text()
+                 .splitlines() if "registers" in ln or "spill" in ln]
+             for n, p in libs.items()}
+    emit({"phase": "build", "seconds": build_s,
+          "libraries": {n: p.name for n, p in libs.items()},
+          "ptxas": ptxas})
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for R, D in RMSNORM_CASES:
+            r = check_rmsnorm(torch, F, R, D, dtype, gen)
+            emit({"phase": "kernels", **r})
+            results.append(r)
+        for label, B, S, KH, G, D in ATTN_CASES:
+            r = check_decode_attention(torch, F, B, S, KH, G, D, dtype, gen)
+            r["shape"] = label
+            emit({"phase": "kernels", **r})
+            results.append(r)
+    bad = [r for r in results if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"{len(bad)} kernel checks disagree with the "
+                           f"plain versions: {bad}")
+
+    launches = phase_serve(torch)
+    phase_model_check(torch)
+
+    def pick(name):
+        if name == "rmsnorm":
+            R, D, dt = MAIN_PATH[name]
+            return next(r for r in results if r["kernel"] == name
+                        and r["R"] == R and r["D"] == D and r["dtype"] == dt)
+        label, dt = MAIN_PATH[name]
+        return next(r for r in results if r["kernel"] == name
+                    and r["shape"] == label and r["dtype"] == dt)
+
+    meta = {
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:25"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:69"),
+    }
+    kernels = []
+    for name, (source, replaces) in meta.items():
+        r = pick(name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "max_err": r["max_abs_err"],
+            "ms": r["ms"], "kernel_ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    emit({"kernels": kernels})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""Architecture registry: ``--arch <id>`` resolution.
+
+Only the text-only dense families are ported; the rest of the JAX
+package's registry is queued in ROADMAP.md.
+"""
+
+from repro_torch.configs import h2o_danube_3_4b, qwen2_1p5b, yi_6b
+from repro_torch.configs.base import ModelConfig
+
+__all__ = ["ModelConfig", "ARCHS", "get_config", "get_tiny"]
+
+ARCHS = {
+    "qwen2-1.5b": qwen2_1p5b,
+    "yi-6b": yi_6b,
+    "h2o-danube-3-4b": h2o_danube_3_4b,
+}
+
+
+def get_config(arch: str) -> ModelConfig:
+    return ARCHS[arch].get_config()
+
+
+def get_tiny(arch: str) -> ModelConfig:
+    return ARCHS[arch].tiny()

@@ -1,0 +1,64 @@
+"""Config schema: model architecture (the dense-family fields)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class ModelConfig:
+    # identity
+    name: str = "model"
+    family: str = "dense"          # only "dense" is ported so far
+
+    # trunk
+    n_layers: int = 2
+    d_model: int = 128
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: Optional[int] = None  # default d_model // n_heads
+    d_ff: int = 512
+    vocab_size: int = 256
+    vocab_pad_multiple: int = 128
+    qkv_bias: bool = False
+    mlp_type: str = "gated_silu"    # gated_silu | relu2 | gelu
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+
+    # sliding-window attention (None = full)
+    window: Optional[int] = None
+
+    # numerics
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            self.head_dim = self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return -(-self.vocab_size // m) * m
+
+    @property
+    def act_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def n_params(self) -> int:
+        """Parameter count from the dense family's shapes."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"n_params covers the dense family, not {self.family}")
+        d, h, kh, hd = self.d_model, self.n_heads, self.n_kv_heads, \
+            self.head_dim
+        attn = d * h * hd + 2 * d * kh * hd + h * hd * d
+        if self.qkv_bias:
+            attn += h * hd + 2 * kh * hd
+        n_mats = 3 if self.mlp_type == "gated_silu" else 2
+        block = 2 * d + attn + n_mats * d * self.d_ff
+        tables = 1 if self.tie_embeddings else 2
+        return tables * self.padded_vocab * d + d + self.n_layers * block

@@ -1,0 +1,20 @@
+"""yi-6b [dense]: 32L d_model=4096 32H (GQA kv=4) d_ff=11008 vocab=64000 —
+llama-arch GQA [arXiv:2403.04652; hf]."""
+
+from repro_torch.configs.base import ModelConfig
+
+
+def get_config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-6b", family="dense",
+        n_layers=32, d_model=4096, n_heads=32, n_kv_heads=4,
+        d_ff=11008, vocab_size=64000, rope_theta=5e6,
+    )
+
+
+def tiny() -> ModelConfig:
+    return ModelConfig(
+        name="yi-6b-tiny", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab_size=256, vocab_pad_multiple=8,
+    )
