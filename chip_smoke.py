@@ -7,19 +7,28 @@ Phases, each printing one JSON line:
 
 1. device: the card's name and power limit (``nvidia-smi``), the torch and
    CUDA versions and the compute capability, which must be (9, 0);
-2. build: both CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build: every CUDA kernel from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes of the serving path and beside them, with the largest
-   absolute error, the tolerance, the kernel's, the plain version's and
-   the library call's device times (CUDA graphs of many launches over
-   inputs that exceed the L2 cache, timed by CUDA events), and the bound;
+   the shapes of the serving and long-prompt paths and beside them, with
+   the largest absolute error, the tolerance, the kernel's, the plain
+   version's and the library call's device times (CUDA graphs of many
+   launches over inputs that exceed the L2 cache, timed by CUDA events),
+   and the bound;
 4. serve: qwen2-1.5b at full width and depth in bf16, eight requests
    through the continuous-batching engine, with the kernel launches
    counted over that run alone;
+   serve_long: long prompts through the padded engine at full width and
+   depth in bf16 — qwen2-1.5b (4 x 4096 tokens) and h2o-danube-3-4b
+   (1 x 8192 tokens, past its 4096-token window) — with prefill and decode
+   wall seconds, peak memory and the launches of all three kernels, then
+   one more prefill of the same prompts with CUDA events around each flash
+   launch: flash attention's device time inside a prefill;
 5. model check: qwen2-1.5b at full width with 4 layers in fp32 — the
    continuous engine's tokens equal the padded engine's, and one decode
    step's logits through the kernels match the same step through the plain
-   versions on the CPU;
+   versions on the CPU; then with 2 layers, a 2100-token prompt through
+   the long prefill branch: last-position logits within 1e-3 of the CPU's
+   plain path, and the same generated tokens;
 6. the ``{"kernels": [...]}`` summary.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
@@ -49,6 +58,20 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 L2_BYTES = 50 * 2 ** 20
 TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
        "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+# Flash attention's outputs shrink as a row sees more keys (std about
+# sqrt(e / n) for unit inputs: 0.036 at n = 2048), so its limit scales
+# with each element: |out - ref| <= atol + rtol |ref| + p_round ref_abs,
+# where ref_abs is the plain version on |v|, i.e. sum p |v| / l.  In bf16
+# the kernel rounds each probability to bf16 for P·V (relative error at
+# most 2^-8), which moves an element by at most 2^-8 ref_abs; rtol covers
+# the rounding of both outputs to bf16 (2^-8 |ref| each); atol is a floor
+# well below a typical output.  The relative RMS error ||out - ref|| /
+# ||ref|| is held too.  tools/flash_fault_check.py shows that planted
+# faults of the tensor-core path fail this check.
+FLASH_TOL = {"float32": dict(atol=1e-5, rtol=1e-5, p_round=0.0,
+                             rel_rms=1e-5),
+             "bfloat16": dict(atol=1e-3, rtol=2e-2, p_round=2.0 ** -8,
+                              rel_rms=5e-3)}
 
 
 def emit(obj):
@@ -198,6 +221,104 @@ def check_decode_attention(torch, F, B, S, KH, G, D, dtype, gen):
             "library_ms": lib, "bound_ms": bnd, "bound_by": by}
 
 
+def auto_reps(torch, fn, args, target_s=0.25, cap=100):
+    """Launches per timed round so that one round takes about target_s."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return max(2, min(cap, int(target_s / max(time.perf_counter() - t0,
+                                              1e-6))))
+
+
+def causal_pairs(S, T, window):
+    """(query, key) pairs of causal ∩ window at diagonal offset T - S."""
+    qpos = np.arange(T - S, T, dtype=np.int64)
+    n = qpos + 1
+    if window is not None:
+        n = np.minimum(n, window)
+    return int(n.sum())
+
+
+def check_flash(torch, F, label, B, H, KH, S, T, D, window, dtype, gen,
+                timed=True):
+    """The flash kernel against its plain version at one shape, with its,
+    the plain version's and the library call's device times (only the
+    agreement when ``timed`` is false)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    dev = "cuda"
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
+    v = torch.randn((B, T, KH, D), generator=gen, device=dev).to(dtype)
+
+    def kernel(q, k, v):
+        return flash_attention(q, k, v, n_kv_heads=KH, window=window)
+
+    def plain(q, k, v):
+        return attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), n_kv_heads=KH,
+                             window=window).transpose(1, 2)
+
+    # The library call: SDPA's is_causal aligns top-left when S != T and
+    # knows no window, so the offset and window shapes pass an explicit
+    # S x T boolean mask of causal ∩ window.
+    mask = None
+    if S != T or window is not None:
+        qpos = torch.arange(T - S, T, device=dev)[:, None]
+        kpos = torch.arange(T, device=dev)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= qpos - kpos < window
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True).transpose(1, 2)
+
+    out = kernel(q, k, v).float()
+    ref = plain(q, k, v).float()
+    name = str(dtype).removeprefix("torch.")
+    tol = FLASH_TOL[name]
+    limit = tol["atol"] + tol["rtol"] * ref.abs()
+    if tol["p_round"]:
+        limit += tol["p_round"] * plain(q, k, v.abs()).float()
+    diff = (out - ref).abs()
+    torch.cuda.synchronize()
+    err = diff.max().item()
+    rel_rms = (diff.norm() / ref.norm()).item()
+    n_over = int((diff > limit).sum())
+    res = {"kernel": "flash_attention", "shape": label, "B": B, "H": H,
+           "KH": KH, "S": S, "T": T, "D": D, "window": window,
+           "dtype": name, "max_abs_err": err, "rel_rms_err": rel_rms,
+           "max_err_over_limit": (diff / limit).max().item(),
+           "elements_over_limit": n_over, "tol": tol,
+           "ok": n_over == 0 and rel_rms <= tol["rel_rms"],
+           "ok_at_3e-2": bool(torch.allclose(out, ref, atol=3e-2,
+                                             rtol=3e-2))}
+    del out, ref, diff, limit
+    if not timed:
+        return res
+    elem = q.element_size()
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * elem
+    ops = 4 * D * causal_pairs(S, T, window) * H * B
+    sets = [(q.clone(), k.clone(), v.clone())
+            for _ in range(copies_for(nbytes))]
+    for key, fn in {"ms": kernel, "plain_ms": plain,
+                    "library_ms": library}.items():
+        res[key] = device_ms(torch, fn, sets,
+                             reps=auto_reps(torch, fn, sets[0]), rounds=3)
+    bnd, by = bound_ms(nbytes, ops, name)
+    res.update({"library_call": "sdpa(is_causal, enable_gqa)" if mask is None
+                else "sdpa(bool mask of causal%s, enable_gqa)"
+                % (" and window" if window else ""),
+                "bound_ms": bnd, "bound_by": by, "ops": ops,
+                "bytes": nbytes})
+    return res
+
+
 # --------------------------------------------------------------------- #
 # phases 4 and 5: the serving path
 # --------------------------------------------------------------------- #
@@ -274,6 +395,102 @@ def phase_serve(torch):
     return launches
 
 
+# (arch, prompts, prompt length, new tokens): the padded engine's long
+# prompts at full width and depth.  Danube's prompt is twice its window, so
+# its prefill fills the ring cache.
+SERVE_LONG = [("qwen2-1.5b", 4, 4096, 16), ("h2o-danube-3-4b", 1, 8192, 8)]
+
+
+def phase_serve_long(torch, arch, n_prompts, prompt_len, new_tokens):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = get_config(arch)
+    params = lm_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (n_prompts, prompt_len),
+                           dtype=np.int32)
+    # the launcher's cache sizing (launch/serve.py)
+    sc = ServeConfig(max_prompt=prompt_len + 8, max_new_tokens=new_tokens)
+    eng = Engine(cfg, params, sc, "cuda")
+    eng.generate(prompts)                     # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm_fused.launches = 0
+    decode_attention.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm_fused.launches,
+                "decode_attention": decode_attention.launches,
+                "flash_attention": flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    prefill_s, decode_s = eng.timing["prefill_s"], eng.timing["decode_s"]
+    L = cfg.n_layers
+    want = {"rmsnorm": (2 * L + 1) * new_tokens, "decode_attention": 0,
+            "flash_attention": L}
+
+    # One more prefill of the same prompts, with CUDA events around each
+    # flash launch: its logits are checked, and the events give flash
+    # attention's device time inside a prefill.
+    flash_attention.events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = lm_lib.prefill(
+        params, cfg, {"tokens": torch.as_tensor(prompts.astype(np.int64),
+                                                device="cuda")},
+        sc.max_prompt + sc.max_new_tokens)
+    torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    flash_ms = [a.elapsed_time(b) for a, b in flash_attention.events]
+    flash_attention.events = None
+    finite = bool(torch.isfinite(logits).all())
+    tokens_ok = (out.shape == (n_prompts, new_tokens)
+                 and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
+    res = {"phase": "serve_long", "model": cfg.name, "n_layers": L,
+           "n_params": cfg.n_params(), "dtype": cfg.dtype,
+           "window": cfg.window, "engine": "padded", "prompts": n_prompts,
+           "prompt_len": prompt_len, "new_tokens": new_tokens,
+           "generated_tokens": int(out.size), "prefill_s": prefill_s,
+           "decode_s": decode_s, "wall_s": wall,
+           "prompt_tokens_per_s": n_prompts * prompt_len / prefill_s,
+           "decode_tokens_per_s": n_prompts * (new_tokens - 1) / decode_s,
+           "peak_memory_bytes": peak,
+           "launches": launches, "launches_expected": want,
+           "traced_prefill_s": traced_s,
+           "traced_flash_launches": len(flash_ms),
+           "traced_flash_s": sum(flash_ms) / 1e3,
+           "traced_flash_ms_per_launch": statistics.median(flash_ms),
+           "traced_flash_share": sum(flash_ms) / 1e3 / traced_s,
+           "logits_finite": finite, "tokens_ok": tokens_ok,
+           "first_tokens": out[:, :4].tolist()}
+    emit(res)
+    if launches != want or len(flash_ms) != L:
+        raise RuntimeError(f"kernel launches {launches} != expected {want}"
+                           f" (traced prefill: {len(flash_ms)} flash)")
+    if not (finite and tokens_ok):
+        raise RuntimeError(f"serve_long {arch}: logits finite {finite}, "
+                           f"tokens {out.tolist()}")
+    del eng, params, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.cpu()
+
+
 def phase_model_check(torch):
     from repro_torch.configs import get_config
     from repro_torch.models import cache as cache_lib
@@ -316,13 +533,6 @@ def phase_model_check(torch):
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, 1)),
                              device="cuda")
 
-    def to_cpu(tree):
-        if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(to_cpu(v) for v in tree)
-        return tree.cpu()
-
     cpu_args = to_cpu((params, {"tokens": tokens}, pool, step))
     logits_k, _ = lm_lib.decode_step_paged(params, cfg, {"tokens": tokens},
                                            pool, step)
@@ -342,6 +552,47 @@ def phase_model_check(torch):
         raise RuntimeError("whole-model check failed")
 
 
+def phase_model_check_long(torch):
+    """qwen2-1.5b at full width, 2 layers, fp32: a 2100-token prompt takes
+    the long prefill branch (flash attention, with ragged tiles) on the
+    card and its plain version on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import lm as lm_lib
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=2,
+                              dtype="float32")
+    params = lm_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(4), "cuda")
+    cpu_params = to_cpu(params)
+    prompt = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 2100), dtype=np.int32)
+    tokens = torch.as_tensor(prompt.astype(np.int64))
+    flash_attention.launches = 0
+    logits_k, _ = lm_lib.prefill(params, cfg, {"tokens": tokens.cuda()},
+                                 2104)
+    launches = flash_attention.launches
+    logits_p, _ = lm_lib.prefill(cpu_params, cfg, {"tokens": tokens}, 2104)
+    lk = logits_k.cpu()
+    err = (lk - logits_p).abs().max().item()
+    finite = bool(torch.isfinite(lk).all())
+    sc = ServeConfig(max_prompt=2100, max_new_tokens=4)
+    tok_k = Engine(cfg, params, sc, "cuda").generate(prompt)
+    tok_p = Engine(cfg, cpu_params, sc, "cpu").generate(prompt)
+    same = bool((tok_k == tok_p).all())
+    out = {"phase": "model_check_long", "model": cfg.name, "n_layers": 2,
+           "dtype": "float32", "allow_tf32": False, "prompt_len": 2100,
+           "prefill_logits_max_abs_err": err, "atol": 1e-3,
+           "finite": finite, "shape": list(lk.shape),
+           "flash_launches": launches, "tokens_card": tok_k.tolist(),
+           "tokens_cpu": tok_p.tolist(), "tokens_equal": same}
+    emit(out)
+    if not (same and finite and err <= 1e-3 and launches == cfg.n_layers
+            and tuple(lk.shape) == (1, 1, cfg.padded_vocab)):
+        raise RuntimeError("long-prompt whole-model check failed")
+
+
 # --------------------------------------------------------------------- #
 
 RMSNORM_CASES = [(R, D) for D in (1536, 3840, 48) for R in (8, 64, 4096)]
@@ -351,8 +602,15 @@ ATTN_CASES = [  # (label, B, S, KH, G, D)
     ("danube", 8, 160, 8, 4, 120),
     ("tiny", 8, 160, 1, 3, 16),
 ]
+FLASH_CASES = [  # (label, B, H, KH, S, T, D, window)
+    ("qwen2", 4, 12, 2, 4096, 4096, 128, None),
+    ("danube", 2, 32, 8, 8192, 8192, 120, 4096),
+    ("offset", 2, 12, 2, 100, 2100, 128, None),
+    ("tiny", 1, 3, 1, 2048, 2048, 16, None),
+]
 MAIN_PATH = {"rmsnorm": (8, 1536, "bfloat16"),
-             "decode_attention": ("serving", "bfloat16")}
+             "decode_attention": ("serving", "bfloat16"),
+             "flash_attention": ("qwen2", "bfloat16")}
 
 
 def main() -> int:
@@ -408,13 +666,22 @@ def main() -> int:
             r["shape"] = label
             emit({"phase": "kernels", **r})
             results.append(r)
+        for label, B, H, KH, S, T, D, window in FLASH_CASES:
+            r = check_flash(torch, F, label, B, H, KH, S, T, D, window,
+                            dtype, gen)
+            emit({"phase": "kernels", **r})
+            results.append(r)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel checks disagree with the "
                            f"plain versions: {bad}")
 
     launches = phase_serve(torch)
+    long_runs = [phase_serve_long(torch, *case) for case in SERVE_LONG]
+    # flash attention's launches on the main path: the qwen2 long-prompt run
+    launches["flash_attention"] = long_runs[0]["launches"]["flash_attention"]
     phase_model_check(torch)
+    phase_model_check_long(torch)
 
     def pick(name):
         if name == "rmsnorm":
@@ -431,6 +698,9 @@ def main() -> int:
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:69"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:87"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -3,7 +3,10 @@
 Layouts: activations (B, S, d_model); q (B, S, H, D); k/v (B, T, KH, D).
 Softmax in fp32.  Caches and the paged pool are updated in place.  The
 continuous-batch decode step attends through the decode attention kernel
-(``kernels/decode_attention``); prefill attends through the plain
+(``kernels/decode_attention``).  Prefill of S·T >= 2048² score elements
+attends through the flash attention kernel (``kernels/flash_attention``),
+where the JAX package runs its XLA twin ``blockwise_sdpa``; shorter
+prefills and the paged chunked prefill attend through the plain
 :func:`_sdpa`, as the JAX package does.
 """
 
@@ -14,6 +17,7 @@ import math
 import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import cache as cache_lib
 from repro_torch.models.layers import apply_rope, dense_init
 
@@ -85,13 +89,12 @@ def causal_mask(s, t_offset=0, window=None, device=None):
 
 
 def _self_attention(cfg, q, k, v):
-    """Naive causal attention; long sequences need the flash kernel."""
+    """Dispatch: the flash attention kernel for long sequences, naive for
+    short ones."""
     s, t = q.shape[1], k.shape[1]
     if s * t >= _BLOCKWISE_MIN_SCORES:
-        raise NotImplementedError(
-            f"prefill of {s} tokens needs the flash_attention kernel, which "
-            f"is still to be ported (ROADMAP.md, Queue 2 item 3: the padded "
-            f"engine's long-prompt prefill slice)")
+        return flash_attention(q, k, v, n_kv_heads=cfg.n_kv_heads,
+                               window=cfg.window)
     mask = causal_mask(s, window=cfg.window, device=q.device)[None, None, None]
     return _sdpa(q, k, v, mask, cfg.n_kv_heads)
 

@@ -68,7 +68,12 @@ def _engine_device(params, device) -> torch.device:
 
 
 class Engine:
-    """Padded fixed-batch engine (the continuous engine's baseline)."""
+    """Padded fixed-batch engine (the continuous engine's baseline).
+
+    ``timing`` holds the last :meth:`generate` call's wall seconds:
+    ``prefill_s`` up to the first token on the host (the time to first
+    token of every prompt in the batch), ``decode_s`` the rest.
+    """
 
     def __init__(self, cfg: ModelConfig, params, serve_cfg: ServeConfig,
                  device=None):
@@ -76,6 +81,7 @@ class Engine:
         self.params = params
         self.sc = serve_cfg
         self.device = _engine_device(params, device)
+        self.timing = {"prefill_s": 0.0, "decode_s": 0.0}
 
     def generate(self, prompts: np.ndarray) -> np.ndarray:
         """prompts: (B, S) int32. Returns (B, max_new_tokens) int32;
@@ -86,12 +92,14 @@ class Engine:
         b, s = prompts.shape
         width = sc.max_new_tokens
         eos = sc.eos_id
+        t0 = time.perf_counter()
         tokens = torch.as_tensor(np.asarray(prompts, np.int64),
                                  device=self.device)
         logits, caches = lm_lib.prefill(self.params, cfg, {"tokens": tokens},
                                         sc.max_prompt + sc.max_new_tokens)
         token = torch.argmax(logits[..., :cfg.vocab_size], dim=-1)
-        out = [token.cpu().numpy()[:, 0]]
+        out = [token.cpu().numpy()[:, 0]]   # waits for the device
+        t1 = time.perf_counter()
         alive = np.ones((b,), bool) if eos < 0 else out[0] != eos
         for i in range(width - 1):
             if eos >= 0 and not alive.any():
@@ -104,6 +112,8 @@ class Engine:
             out.append(tok_np)
             if eos >= 0:
                 alive &= tok_np != eos
+        self.timing = {"prefill_s": t1 - t0,
+                       "decode_s": time.perf_counter() - t1}
         res = np.stack(out, axis=1).astype(np.int32)
         if res.shape[1] < width:            # early exit: pad to contract
             pad = np.full((b, width - res.shape[1]), eos, np.int32)

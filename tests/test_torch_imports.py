@@ -59,7 +59,9 @@ def test_port_has_the_slice_modules():
     names = {os.path.relpath(p, PORT) for p in _port_files()}
     for mod in ("configs/base.py", "configs/qwen2_1p5b.py",
                 "kernels/_build.py", "kernels/rmsnorm/ops.py",
-                "kernels/decode_attention/ops.py", "models/convert.py",
+                "kernels/decode_attention/ops.py",
+                "kernels/flash_attention/ops.py",
+                "kernels/flash_attention/ref.py", "models/convert.py",
                 "serve/engine.py", "launch/serve.py", "core/datatypes.py"):
         assert mod in names
 

@@ -24,7 +24,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import cache as tcache
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
-from repro_torch.models.convert import params_from_numpy, tree_from_numpy
+from repro_torch.models.convert import tree_from_numpy
+from test_torch_serve import models as serve_models
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 ARCHS = ["qwen2-1.5b", "yi-6b", "h2o-danube-3-4b"]
@@ -41,10 +42,9 @@ def configs(arch):
 
 @pytest.fixture(scope="module", params=ARCHS)
 def model(request):
-    """(arch, JAX cfg, port cfg, JAX params, port params)."""
-    jc, tc = configs(request.param)
-    jp = jax.jit(lambda key: jlm.init_params(jc, key))(jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
+    """(arch, JAX cfg, port cfg, JAX params, port params), from the port
+    suite's one cached initialisation per arch."""
+    jc, jp, tc, tp = serve_models(request.param)
     return request.param, jc, tc, jp, tp
 
 
