@@ -13,7 +13,9 @@ Phases, each printing one JSON line:
    the largest absolute error, the tolerance, the kernel's, the plain
    version's and the library call's device times (CUDA graphs of many
    launches over inputs that exceed the L2 cache, timed by CUDA events),
-   and the bound;
+   and the bound; the grouped matmul (moe_gmm) at mixtral's decode and
+   prefill-chunk shapes, in the w_out direction at both and at a ragged
+   shape;
 4. serve: qwen2-1.5b at full width and depth in bf16, eight requests
    through the continuous-batching engine, with the kernel launches
    counted over that run alone;
@@ -23,12 +25,21 @@ Phases, each printing one JSON line:
    wall seconds, peak memory and the launches of all three kernels, then
    one more prefill of the same prompts with CUDA events around each flash
    launch: flash attention's device time inside a prefill;
+   serve_moe: mixtral-8x22b at full width with 12 of its 56 layers (one
+   card's 80 GB) in bf16, the same eight requests through the
+   continuous-batching engine, with the launches of the three kernels on
+   its path (rmsnorm, decode_attention, moe_gmm) counted over that run,
+   then the same requests once more with CUDA events around each moe_gmm
+   launch: the experts' device time inside a served run;
 5. model check: qwen2-1.5b at full width with 4 layers in fp32 — the
    continuous engine's tokens equal the padded engine's, and one decode
    step's logits through the kernels match the same step through the plain
    versions on the CPU; then with 2 layers, a 2100-token prompt through
    the long prefill branch: last-position logits within 1e-3 of the CPU's
-   plain path, and the same generated tokens;
+   plain path, and the same generated tokens; then mixtral-8x22b at full
+   width with 1 layer in fp32: one paged prefill chunk and one paged
+   decode step through the kernels on the card against the plain versions
+   on the CPU (logits within 1e-3, the same tokens);
 6. the ``{"kernels": [...]}`` summary.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
@@ -72,6 +83,23 @@ FLASH_TOL = {"float32": dict(atol=1e-5, rtol=1e-5, p_round=0.0,
                              rel_rms=1e-5),
              "bfloat16": dict(atol=1e-3, rtol=2e-2, p_round=2.0 ** -8,
                               rel_rms=5e-3)}
+# The grouped matmul is held to its plain version's fp32 value (the plain
+# version before its cast to x's type): |out - ref| <= rtol |ref| +
+# c ref_abs per element, ref_abs being the plain version on |x|, |w| (the
+# sum of |products|), and ||out - ref|| / ||ref|| <= rel_rms.  In bf16 the
+# kernel rounds its fp32 sum to bf16 once: at most half a bf16 step,
+# 2^-8 |ref|, half of rtol = 2^-7.  The kernel and the plain version sum
+# the same exact products in fp32 in another order: each addition errs by
+# at most 2^-24 of a partial sum, itself at most ref_abs, and over K <=
+# 16384 terms these errors grow as a random walk, about 2^-24 sqrt(K)
+# ref_abs <= 2^-17 ref_abs; c = 2^-14 leaves a factor of 8 on that.  The
+# output rounding gives a relative RMS error of about 2^-9.5; rel_rms =
+# 2^-7.  In fp32 there is no output rounding: rtol covers a few steps of
+# fp32 (2^-22), c = 2^-18 the summation order, rel_rms = 2^-16.
+# tools/moe_gmm_fault_check.py shows that planted faults fail the bf16
+# limit.
+MOE_TOL = {"float32": dict(rtol=2.0 ** -22, c=2.0 ** -18, rel_rms=2.0 ** -16),
+           "bfloat16": dict(rtol=2.0 ** -7, c=2.0 ** -14, rel_rms=2.0 ** -7)}
 
 
 def emit(obj):
@@ -319,6 +347,81 @@ def check_flash(torch, F, label, B, H, KH, S, T, D, window, dtype, gen,
     return res
 
 
+def moe_gmm_bytes_ops(nv, D, F, elem, C):
+    """Bytes and operations this n_valid needs: w of the experts with a
+    valid row, the valid rows of x, all of y, n_valid itself."""
+    valid = nv.tolist()
+    used = sum(1 for n in valid if n)
+    rows = sum(valid)
+    nbytes = (used * D * F + rows * D + len(valid) * C * F) * elem \
+        + 4 * len(valid)
+    return nbytes, 2 * rows * D * F
+
+
+def check_moe_gmm(torch, label, E, C, D, F, dtype, gen, timed=True):
+    """The grouped matmul against its plain version at one shape, n_valid
+    random with 0 (expert 0) and C (the last expert) among it, with its,
+    the plain version's and the library call's device times (only the
+    agreement when ``timed`` is false)."""
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+    dev = "cuda"
+    x = torch.randn((E, C, D), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((E, D, F), generator=gen, device=dev)
+         * D ** -0.5).to(dtype)
+    nv = torch.randint(0, C + 1, (E,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    nv[0], nv[-1] = 0, C
+    # The output's memory is filled with NaN first (the allocator hands the
+    # freed block back), so an element the kernel leaves unwritten fails.
+    poison = torch.full((E, C, F), float("nan"), dtype=dtype, device=dev)
+    del poison
+    out = moe_gmm(x, w, nv).float()
+    ref = moe_gmm_ref(x.float(), w.float(), nv)
+    plain = moe_gmm_ref(x, w, nv).float()
+    name = str(dtype).removeprefix("torch.")
+    tol = MOE_TOL[name]
+    limit = tol["rtol"] * ref.abs() + tol["c"] * moe_gmm_ref(
+        x.abs().float(), w.abs().float(), nv)
+    diff = (out - ref).abs()
+    use = torch.nan_to_num(torch.where(diff == 0, 0.0, diff / limit),
+                           nan=float("inf"))
+    torch.cuda.synchronize()
+    n_over = int((~(diff <= limit)).sum())
+    rel_rms = (diff.norm() / ref.norm()).item()
+    max_use = use.max().item()
+    res = {"kernel": "moe_gmm", "shape": label, "E": E, "C": C, "D": D,
+           "F": F, "dtype": name, "n_valid": nv.tolist(),
+           "max_abs_err": diff.max().item(), "max_abs_ref": ref.abs().max()
+           .item(), "max_abs_err_vs_plain_out": (out - plain).abs().max()
+           .item(),
+           "rel_rms_err": rel_rms, "max_err_over_limit": max_use,
+           "rel_rms_over_limit": rel_rms / tol["rel_rms"],
+           "limit_use": max(max_use, rel_rms / tol["rel_rms"]),
+           "elements_over_limit": n_over, "tol": tol,
+           "ok": n_over == 0 and rel_rms <= tol["rel_rms"]}
+    del out, ref, plain, limit, diff, use
+    if not timed:
+        return res
+    elem = x.element_size()
+    nbytes, ops = moe_gmm_bytes_ops(nv, D, F, elem, C)
+    full = (x.numel() + w.numel()) * elem
+    sets = [(x.clone(), w.clone(), nv.clone())
+            for _ in range(copies_for(full))]
+    for key, fn in {"ms": moe_gmm, "plain_ms": moe_gmm_ref,
+                    "library_ms": lambda a, b, _: torch.bmm(a, b)}.items():
+        res[key] = device_ms(torch, fn, sets,
+                             reps=auto_reps(torch, fn, sets[0]), rounds=3)
+    bnd, by = bound_ms(nbytes, ops, name)
+    res.update({"library_call": "torch.bmm(x, w) (all rows: it takes no "
+                                "n_valid)",
+                "bound_ms": bnd, "bound_by": by, "ops": ops,
+                "bytes": nbytes})
+    del sets
+    torch.cuda.empty_cache()
+    return res
+
+
 # --------------------------------------------------------------------- #
 # phases 4 and 5: the serving path
 # --------------------------------------------------------------------- #
@@ -339,14 +442,23 @@ def serve_workload(eng, n_req, seed=0):
     return prompts, budgets, eng.run()
 
 
-def phase_serve(torch):
+def phase_serve(torch, arch="qwen2-1.5b", n_layers=None):
+    """``arch`` (``n_layers`` of its layers, all by default) at full width
+    in bf16, random weights from seed 0, serving eight requests through
+    the continuous-batching engine, with each kernel's launches counted
+    over that run alone.  For the MoE family the same requests run once
+    more with CUDA events around each moe_gmm launch: the experts' device
+    time inside a served run."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
     from repro_torch.models import lm as lm_lib
     from repro_torch.serve.engine import ContinuousEngine, ServeConfig
 
-    cfg = get_config("qwen2-1.5b")
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=n_layers or full.n_layers)
+    moe = cfg.family == "moe"
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = lm_lib.init_params(cfg, gen, "cuda")
@@ -358,32 +470,55 @@ def phase_serve(torch):
     torch.cuda.reset_peak_memory_stats()
     rmsnorm_fused.launches = 0
     decode_attention.launches = 0
+    moe_gmm.launches = 0
     t0 = time.perf_counter()
     prompts, budgets, res = serve_workload(eng, 8)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rmsnorm": rmsnorm_fused.launches,
-                "decode_attention": decode_attention.launches}
+                "decode_attention": decode_attention.launches,
+                "moe_gmm": moe_gmm.launches}
+    peak = torch.cuda.max_memory_allocated()
     st = dict(eng.stats)
     L = cfg.n_layers
-    want = {"rmsnorm": (2 * L + 1) * (st["prefill_dispatches"]
-                                      + st["decode_steps"]),
-            "decode_attention": L * st["decode_steps"]}
+    dispatches = st["prefill_dispatches"] + st["decode_steps"]
+    want = {"rmsnorm": (2 * L + 1) * dispatches,
+            "decode_attention": L * st["decode_steps"],
+            "moe_gmm": 3 * L * dispatches if moe else 0}
     tokens = sum(len(v) for v in res.values())
     lat = sorted(eng.latency.values())
-    out = {"phase": "serve", "model": cfg.name, "n_layers": L,
-           "n_params": cfg.n_params(), "dtype": cfg.dtype,
-           "serve_config": SERVE, "requests": len(res),
+    out = {"phase": "serve_moe" if moe else "serve", "model": cfg.name,
+           "n_layers": L, "n_layers_full": full.n_layers,
+           "n_params": cfg.n_params(), "n_params_full": full.n_params(),
+           "dtype": cfg.dtype, "serve_config": SERVE, "requests": len(res),
            "prompt_lens": [len(p) for p in prompts],
            "budgets": [int(b) for b in budgets], "tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
+           "dispatches": dispatches, "s_per_dispatch": wall / dispatches,
            "latency_p50_s": lat[len(lat) // 2], "latency_max_s": lat[-1],
-           "stats": st, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-           "init_params_s": init_s, "launches": launches,
-           "launches_expected": want}
+           "stats": st, "peak_memory_bytes": peak, "init_params_s": init_s,
+           "launches": launches, "launches_expected": want}
+    traced = []
+    if moe:
+        out["reduced"] = (f"depth {L} of {full.n_layers} layers (one card's "
+                          f"80 GB); widths as published")
+        moe_gmm.events = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_workload(eng, 8)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+        traced = [a.elapsed_time(b) for a, b in moe_gmm.events]
+        moe_gmm.events = None
+        out.update({"traced_wall_s": traced_s,
+                    "traced_moe_gmm_launches": len(traced),
+                    "traced_moe_gmm_s": sum(traced) / 1e3,
+                    "traced_moe_gmm_ms_per_launch": statistics.median(traced),
+                    "traced_moe_gmm_share": sum(traced) / 1e3 / traced_s})
     emit(out)
-    if launches != want:
-        raise RuntimeError(f"kernel launches {launches} != expected {want}")
+    if launches != want or len(traced) != (want["moe_gmm"] if moe else 0):
+        raise RuntimeError(f"kernel launches {launches} != expected {want}"
+                           f" (traced run: {len(traced)} moe_gmm)")
     for rid, toks in res.items():
         if len(toks) != int(budgets[rid]) or not (
                 (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -481,6 +616,11 @@ def phase_serve_long(torch, arch, n_prompts, prompt_len, new_tokens):
     del eng, params, logits
     torch.cuda.empty_cache()
     return res
+
+
+# mixtral-8x22b at full width: 12 of its 56 layers fit one card's 80 GB
+# in bf16 (30.45 B parameters, 60.9 GB; about 5.01 GB a layer).
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 12
 
 
 def to_cpu(tree):
@@ -593,6 +733,84 @@ def phase_model_check_long(torch):
         raise RuntimeError("long-prompt whole-model check failed")
 
 
+def phase_model_check_moe(torch):
+    """mixtral-8x22b at full width, 1 layer, fp32: one paged prefill chunk
+    (4 rows of 16 tokens, one of them partly padding) and one paged decode
+    step through the kernels on the card and through the plain versions on
+    the CPU: logits within 1e-3 at every real position, the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import lm as lm_lib
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=1,
+                              dtype="float32")
+    params = lm_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(6), "cuda")
+    cpu_params = to_cpu(params)
+    B, C, bs, pages = 4, 16, 16, 4
+    s_max = pages * bs
+    rng = np.random.default_rng(7)
+    tables = 1 + np.arange(B * pages).reshape(B, pages)
+    gather = torch.as_tensor((tables[:, :, None] * bs + np.arange(bs))
+                             .reshape(B, s_max), device="cuda")
+    real = torch.tensor([C, C, C, 10], device="cuda")
+    j = torch.arange(C, device="cuda")[None, :]
+    is_real = j < real[:, None]
+    pos = torch.where(is_real, j, -1)
+    chunk = {"pos": pos, "write": torch.where(is_real, gather[:, :C], j % bs),
+             "gather": gather,
+             "mask": cache_lib.paged_valid_mask(pos, s_max, cfg.window)}
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, C)),
+                             device="cuda")
+    pool = lm_lib.init_paged_cache(cfg, B * pages + 1, bs, device="cuda")
+    cpu_pool = to_cpu(pool)
+
+    def both(fn, tok, step):
+        moe_gmm.launches = 0
+        lk, _ = fn(params, cfg, {"tokens": tok}, pool, step)
+        launches = moe_gmm.launches
+        lp, _ = fn(cpu_params, cfg, {"tokens": tok.cpu()}, cpu_pool,
+                   to_cpu(step))
+        return lk.cpu(), lp, launches
+
+    lk, lp, n_prefill = both(lm_lib.prefill_chunk_paged, tokens, chunk)
+    sel = is_real.cpu()
+    err_prefill = (lk - lp).abs()[sel].max().item()
+    last = real.cpu() - 1
+    tok_k = lk[torch.arange(B), last, :cfg.vocab_size].argmax(-1)
+    tok_p = lp[torch.arange(B), last, :cfg.vocab_size].argmax(-1)
+    finite = bool(torch.isfinite(lk).all())
+
+    dpos = real.clone()
+    decode = {"pos": dpos, "write": gather.gather(1, dpos[:, None])[:, 0],
+              "gather": gather,
+              "mask": cache_lib.paged_valid_mask(dpos, s_max, cfg.window)}
+    lk2, lp2, n_decode = both(lm_lib.decode_step_paged,
+                              tok_k[:, None].cuda(), decode)
+    err_decode = (lk2 - lp2).abs().max().item()
+    dtok_k = lk2[:, 0, :cfg.vocab_size].argmax(-1)
+    dtok_p = lp2[:, 0, :cfg.vocab_size].argmax(-1)
+    finite = finite and bool(torch.isfinite(lk2).all())
+    same = bool((tok_k == tok_p).all() and (dtok_k == dtok_p).all())
+    out = {"phase": "model_check_moe", "model": cfg.name, "n_layers": 1,
+           "n_params": cfg.n_params(), "dtype": "float32",
+           "allow_tf32": False, "prefill_rows": B, "prefill_chunk": C,
+           "prefill_logits_max_abs_err": err_prefill,
+           "decode_logits_max_abs_err": err_decode, "atol": 1e-3,
+           "finite": finite, "moe_gmm_launches": [n_prefill, n_decode],
+           "tokens_card": [tok_k.tolist(), dtok_k.tolist()],
+           "tokens_cpu": [tok_p.tolist(), dtok_p.tolist()],
+           "tokens_equal": same}
+    emit(out)
+    if not (same and finite and max(err_prefill, err_decode) <= 1e-3
+            and n_prefill == n_decode == 3 * cfg.n_layers
+            and tuple(lk2.shape) == (B, 1, cfg.padded_vocab)):
+        raise RuntimeError("MoE whole-model check failed")
+    del params, cpu_params, pool, cpu_pool
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 
 RMSNORM_CASES = [(R, D) for D in (1536, 3840, 48) for R in (8, 64, 4096)]
@@ -608,9 +826,17 @@ FLASH_CASES = [  # (label, B, H, KH, S, T, D, window)
     ("offset", 2, 12, 2, 100, 2100, 128, None),
     ("tiny", 1, 3, 1, 2048, 2048, 16, None),
 ]
+MOE_CASES = [  # (label, E, C, D, F): mixtral's experts and a ragged shape
+    ("decode", 8, 8, 6144, 16384),
+    ("prefill", 8, 24, 6144, 16384),
+    ("w_out", 8, 24, 16384, 6144),
+    ("w_out_decode", 8, 8, 16384, 6144),
+    ("ragged", 5, 37, 200, 300),
+]
 MAIN_PATH = {"rmsnorm": (8, 1536, "bfloat16"),
              "decode_attention": ("serving", "bfloat16"),
-             "flash_attention": ("qwen2", "bfloat16")}
+             "flash_attention": ("qwen2", "bfloat16"),
+             "moe_gmm": ("decode", "bfloat16")}
 
 
 def main() -> int:
@@ -671,6 +897,10 @@ def main() -> int:
                             dtype, gen)
             emit({"phase": "kernels", **r})
             results.append(r)
+        for case in MOE_CASES:
+            r = check_moe_gmm(torch, *case, dtype, gen)
+            emit({"phase": "kernels", **r})
+            results.append(r)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel checks disagree with the "
@@ -680,8 +910,10 @@ def main() -> int:
     long_runs = [phase_serve_long(torch, *case) for case in SERVE_LONG]
     # flash attention's launches on the main path: the qwen2 long-prompt run
     launches["flash_attention"] = long_runs[0]["launches"]["flash_attention"]
+    launches["moe_gmm"] = phase_serve(torch, MOE_ARCH, MOE_LAYERS)["moe_gmm"]
     phase_model_check(torch)
     phase_model_check_long(torch)
+    phase_model_check_moe(torch)
 
     def pick(name):
         if name == "rmsnorm":
@@ -701,6 +933,8 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:87"),
+        "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
+                    "src/repro/kernels/moe_gmm/kernel.py:37"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-Only the text-only dense families are ported; the rest of the JAX
-package's registry is queued in ROADMAP.md.
+The text-only dense families and mixtral (MoE) are ported; the rest of
+the JAX package's registry is queued in ROADMAP.md.
 """
 
-from repro_torch.configs import h2o_danube_3_4b, qwen2_1p5b, yi_6b
+from repro_torch.configs import (h2o_danube_3_4b, mixtral_8x22b, qwen2_1p5b,
+                                 yi_6b)
 from repro_torch.configs.base import ModelConfig
 
 __all__ = ["ModelConfig", "ARCHS", "get_config", "get_tiny"]
@@ -13,6 +14,7 @@ ARCHS = {
     "qwen2-1.5b": qwen2_1p5b,
     "yi-6b": yi_6b,
     "h2o-danube-3-4b": h2o_danube_3_4b,
+    "mixtral-8x22b": mixtral_8x22b,
 }
 
 

@@ -1,4 +1,4 @@
-"""Config schema: model architecture (the dense-family fields)."""
+"""Config schema: model architecture (the dense and MoE families' fields)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 class ModelConfig:
     # identity
     name: str = "model"
-    family: str = "dense"          # only "dense" is ported so far
+    family: str = "dense"          # "dense" or "moe" (non-MLA) are ported
 
     # trunk
     n_layers: int = 2
@@ -32,12 +32,23 @@ class ModelConfig:
     # sliding-window attention (None = full)
     window: Optional[int] = None
 
+    # MoE
+    n_experts: int = 0
+    top_k: int = 2
+    n_shared_experts: int = 0
+    moe_ff: Optional[int] = None     # expert intermediate (defaults d_ff)
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.001
+    moe_groups: int = 1              # dispatch groups (1 on one card)
+
     # numerics
     dtype: str = "bfloat16"
 
     def __post_init__(self):
         if self.head_dim is None:
             self.head_dim = self.d_model // self.n_heads
+        if self.moe_ff is None:
+            self.moe_ff = self.d_ff
 
     @property
     def padded_vocab(self) -> int:
@@ -49,16 +60,22 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     def n_params(self) -> int:
-        """Parameter count from the dense family's shapes."""
-        if self.family != "dense":
+        """Parameter count from the dense or MoE family's shapes."""
+        if self.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"n_params covers the dense family, not {self.family}")
+                f"n_params covers the dense and moe families, not "
+                f"{self.family}")
         d, h, kh, hd = self.d_model, self.n_heads, self.n_kv_heads, \
             self.head_dim
         attn = d * h * hd + 2 * d * kh * hd + h * hd * d
         if self.qkv_bias:
             attn += h * hd + 2 * kh * hd
-        n_mats = 3 if self.mlp_type == "gated_silu" else 2
-        block = 2 * d + attn + n_mats * d * self.d_ff
+        if self.family == "moe":
+            ffn = d * self.n_experts + 3 * self.n_experts * d * self.moe_ff
+            ffn += 3 * d * self.moe_ff * self.n_shared_experts
+        else:
+            n_mats = 3 if self.mlp_type == "gated_silu" else 2
+            ffn = n_mats * d * self.d_ff
+        block = 2 * d + attn + ffn
         tables = 1 if self.tie_embeddings else 2
         return tables * self.padded_vocab * d + d + self.n_layers * block

@@ -4,9 +4,9 @@ On CPU tensors it computes the plain version (``ref.attention_ref``); on
 CUDA tensors it launches ``csrc/flash_attention.cu`` on the current stream,
 or raises.  The kernel reads q, k and v through their strides in the model
 layout, so no transposed copy is made on the card.
-``flash_attention.launches`` counts the kernel launches.  When
-``flash_attention.events`` is a list, each launch appends a pair of timing
-CUDA events recorded around it on its stream.
+``flash_attention.launches`` counts the kernel launches;
+``flash_attention.events`` times them when it is a list (see
+``kernels/_events.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._events import recorded
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,21 +82,13 @@ def flash_attention(q, k, v, *, n_kv_heads, window=None):
     if {k.device, v.device} != {q.device}:
         raise ValueError("q, k and v must share one device")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    events = flash_attention.events
-    with torch.cuda.device(q.device):
-        if events is not None:
-            start = torch.cuda.Event(enable_timing=True)
-            start.record()
+    with torch.cuda.device(q.device), recorded(flash_attention):
         err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             t, kh, h // kh, d, q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             0 if window is None else int(window), 1.0 / (d ** 0.5),
             _DTYPE[q.dtype], torch.cuda.current_stream().cuda_stream)
-        if events is not None:
-            end = torch.cuda.Event(enable_timing=True)
-            end.record()
-            events.append((start, end))
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.lm import check_ported
 
 _FP32_LEAVES = {"scale"}          # RMSNorm scales
 
@@ -39,14 +40,12 @@ def params_from_numpy(tree, cfg, device=None, dtype=None):
 
     Args:
         tree: the JAX parameter pytree as numpy arrays.
-        cfg: the port's ``ModelConfig`` (dense family).
+        cfg: the port's ``ModelConfig`` (dense or non-MLA moe family).
         device: where the tensors go (the card unless ``"cpu"``).
         dtype: type of matrices, tables and biases (default
             ``cfg.act_dtype``).
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family} is not ported yet (dense only)")
+    check_ported(cfg)
     dev = resolve_device(device)
     dt = dtype or cfg.act_dtype
     out = {k: tree_from_numpy(v, dev, dt, k) for k, v in tree.items()

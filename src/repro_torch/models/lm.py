@@ -1,6 +1,7 @@
-"""The language model, dense family: init, caches, prefill and decode.
+"""The language model, dense and (non-MLA) MoE families: init, caches,
+prefill and decode.
 
-Other families (MoE, MLA, hybrid, SSM, modality frontends) raise
+Other families (MLA, hybrid, SSM, modality frontends) raise
 ``NotImplementedError``; ROADMAP.md queues them.
 """
 
@@ -15,10 +16,16 @@ from repro_torch.models.layers import (embed, init_embed, init_rmsnorm,
                                        rmsnorm, unembed)
 
 
-def _check_dense(cfg):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family} is not ported yet (dense only)")
+def check_ported(cfg) -> str:
+    """The block kind of ``cfg``'s stack: "dense" or "moe".
+
+    Raises:
+        NotImplementedError: any other family.
+    """
+    if cfg.family in ("dense", "moe"):
+        return cfg.family
+    raise NotImplementedError(
+        f"family {cfg.family} is not ported yet (dense and moe only)")
 
 
 # ===================================================================== #
@@ -32,7 +39,7 @@ def init_params(cfg, generator, device=None):
     unless ``"cpu"`` is asked for).  Matrices, tables and biases are held
     in the activation type; RMSNorm scales stay fp32.
     """
-    _check_dense(cfg)
+    kind = check_ported(cfg)
     dev = resolve_device(device)
     dt = cfg.act_dtype
     p = {"embed": init_embed(generator, cfg.padded_vocab, cfg.d_model, dev,
@@ -41,7 +48,7 @@ def init_params(cfg, generator, device=None):
         p["head"] = init_embed(generator, cfg.padded_vocab, cfg.d_model, dev,
                                dt)
     p["final_norm"] = init_rmsnorm(cfg.d_model, dev)
-    p["main"] = tfm.init_stack(generator, cfg, "dense", cfg.n_layers, dev, dt)
+    p["main"] = tfm.init_stack(generator, cfg, kind, cfg.n_layers, dev, dt)
     return p
 
 
@@ -50,7 +57,7 @@ def init_params(cfg, generator, device=None):
 # ===================================================================== #
 
 def init_cache(cfg, batch, max_len, device=None):
-    _check_dense(cfg)
+    check_ported(cfg)
     return {"main": cache_lib.init_kv_cache(cfg, batch, max_len,
                                             device=device)}
 
@@ -58,7 +65,7 @@ def init_cache(cfg, batch, max_len, device=None):
 def init_paged_cache(cfg, n_blocks, block_size, device=None):
     """Paged KV pool for the continuous-batching serving engine (GQA
     families only)."""
-    _check_dense(cfg)
+    check_ported(cfg)
     return {"main": cache_lib.init_paged_kv_cache(cfg, n_blocks, block_size,
                                                   device=device)}
 
@@ -70,8 +77,8 @@ def init_paged_cache(cfg, n_blocks, block_size, device=None):
 def trunk(params, cfg, x, positions, mode, t=None, caches=None):
     """Apply the model trunk. Returns (x, caches), caches updated in
     place."""
-    _check_dense(cfg)
-    x, cache = tfm.stack_apply(params["main"], cfg, "dense", x, positions,
+    kind = check_ported(cfg)
+    x, cache = tfm.stack_apply(params["main"], cfg, kind, x, positions,
                                mode, t, None if caches is None
                                else caches["main"])
     return x, (None if caches is None else {"main": cache})

@@ -1,4 +1,8 @@
-"""Block assembly and layer stacks for the dense kind (GQA attn + MLP).
+"""Block assembly and layer stacks.
+
+Block kinds:
+  dense — GQA attn + MLP       (qwen2, yi, danube)
+  moe   — GQA attn + MoE FFN   (mixtral)
 
 A stack is a list of per-layer parameter dicts, applied by a Python loop
 over layers (the JAX package scans stacked parameters).  A cache, where
@@ -9,21 +13,25 @@ in place.
 from __future__ import annotations
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
-ATTN_KINDS = {"dense"}
+ATTN_KINDS = {"dense", "moe"}
 
 
 def init_block(generator, cfg, kind, device=None, dtype=None):
-    if kind != "dense":
+    if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind} is not ported yet")
-    return {
-        "attn_norm": init_rmsnorm(cfg.d_model, device),
-        "attn": attn.init_gqa(generator, cfg, device, dtype),
-        "mlp_norm": init_rmsnorm(cfg.d_model, device),
-        "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type,
-                        device, dtype),
-    }
+    p = {"attn_norm": init_rmsnorm(cfg.d_model, device),
+         "attn": attn.init_gqa(generator, cfg, device, dtype)}
+    if kind == "dense":
+        p["mlp_norm"] = init_rmsnorm(cfg.d_model, device)
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_type,
+                            device, dtype)
+    else:
+        p["moe_norm"] = init_rmsnorm(cfg.d_model, device)
+        p["moe"] = moe_lib.init_moe(generator, cfg, device, dtype)
+    return p
 
 
 def _mix(params, cfg, kind, x, positions, mode, t=None, cache=None):
@@ -46,9 +54,14 @@ def _mix(params, cfg, kind, x, positions, mode, t=None, cache=None):
 
 
 def block_apply(params, cfg, kind, x, positions, mode, t=None, cache=None):
-    """One block. Returns (x, cache)."""
+    """One block. Returns (x, cache); the serving modes drop the MoE aux
+    loss."""
     y, cache = _mix(params, cfg, kind, x, positions, mode, t, cache)
     x = x + y
+    if kind == "moe":
+        h = rmsnorm(params["moe_norm"], x, cfg.norm_eps)
+        y, _aux = moe_lib.moe_ffn(params["moe"], cfg, h)
+        return x + y, cache
     h = rmsnorm(params["mlp_norm"], x, cfg.norm_eps)
     return x + mlp(params["mlp"], cfg, h), cache
 

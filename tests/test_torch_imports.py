@@ -5,7 +5,9 @@ without JAX: no ``import jax``/``jaxlib`` and no module of the JAX package
 (``repro``).  The port's own modules must also not reach the library
 attention or normalisation calls (``scaled_dot_product_attention``,
 ``rms_norm``) that its hand-written kernels replace; ``chip_smoke.py`` may,
-to time them as yardsticks.
+to time them as yardsticks.  In ``models/moe.py`` the expert weights
+(``w_in``, ``w_gate``, ``w_out``) reach no computation but the grouped
+matmul kernel's wrapper, ``moe_gmm``.
 """
 
 import ast
@@ -61,7 +63,9 @@ def test_port_has_the_slice_modules():
                 "kernels/_build.py", "kernels/rmsnorm/ops.py",
                 "kernels/decode_attention/ops.py",
                 "kernels/flash_attention/ops.py",
-                "kernels/flash_attention/ref.py", "models/convert.py",
+                "kernels/flash_attention/ref.py", "kernels/moe_gmm/ops.py",
+                "kernels/moe_gmm/ref.py", "models/moe.py",
+                "configs/mixtral_8x22b.py", "models/convert.py",
                 "serve/engine.py", "launch/serve.py", "core/datatypes.py"):
         assert mod in names
 
@@ -78,3 +82,28 @@ def test_no_jax_or_repro_imports(path):
 def test_no_library_attention_or_norm(path):
     bad = sorted(set(_library_uses(_parse(path))))
     assert not bad, f"{path} uses {bad}"
+
+
+EXPERT_WEIGHTS = {"w_in", "w_gate", "w_out"}
+MATMULS = {"einsum", "bmm", "matmul", "mm", "baddbmm", "linear"}
+
+
+def test_moe_experts_only_through_moe_gmm():
+    """Every use of an expert weight in ``models/moe.py`` is an argument of
+    a ``moe_gmm`` call; no einsum, bmm, matmul or ``@`` takes one."""
+    tree = _parse(os.path.join(PORT, "models", "moe.py"))
+    in_gmm = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id == "moe_gmm"):
+            in_gmm.update(id(a) for a in node.args)
+    uses = [n for n in ast.walk(tree) if isinstance(n, ast.Subscript)
+            and isinstance(n.slice, ast.Constant)
+            and n.slice.value in EXPERT_WEIGHTS]
+    assert len(uses) == 3
+    assert all(id(n) in in_gmm for n in uses)
+    calls = {n.func.attr for n in ast.walk(tree) if isinstance(n, ast.Call)
+             and isinstance(n.func, ast.Attribute)}
+    assert calls & MATMULS == {"einsum"}       # the router's, alone
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.BinOp)
+                and isinstance(n.op, ast.MatMult)]

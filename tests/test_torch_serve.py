@@ -2,8 +2,9 @@
 
 The port's ``ContinuousEngine`` must emit the same tokens as the JAX
 ``ContinuousEngine`` with the same ``ServeConfig``, requests and arrivals,
-at ``tiny()`` sizes in fp32, for qwen2 (QKV bias, tied embeddings), yi and
-h2o-danube (sliding window 16, crossed by prompt + generation).  The port
+at ``tiny()`` sizes in fp32, for qwen2 (QKV bias, tied embeddings), yi,
+h2o-danube (sliding window 16, crossed by prompt + generation) and mixtral
+(MoE experts, window 16).  The port
 is also held to its own padded engine, to its block-table datatype view,
 and to the recycling and admission rules of the JAX engine's cases.
 """
@@ -21,6 +22,7 @@ from repro.serve.engine import ContinuousEngine as JaxContinuousEngine
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro_torch.configs import get_tiny
 from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.moe_gmm.ops import moe_gmm
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
 from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_numpy
@@ -40,7 +42,10 @@ def models(arch):
     if arch not in _CTX:
         jc = dataclasses.replace(jax_tiny(arch), dtype="float32")
         tc = dataclasses.replace(get_tiny(arch), dtype="float32")
-        jp = jax.jit(lambda key: jlm.init_params(jc, key))(
+        # XLA's lowest optimisation level: compiling the initialisation
+        # costs more than running it, and both sides get the same values
+        jp = jax.jit(lambda key: jlm.init_params(jc, key),
+                     compiler_options={"xla_backend_optimization_level": 0})(
             jax.random.PRNGKey(0))
         tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
         _CTX[arch] = (jc, jp, tc, tp)
@@ -59,7 +64,8 @@ def serve(eng, work):
     return [list(res[r]) for r in rids]
 
 
-@pytest.mark.parametrize("arch", ["qwen2-1.5b", "yi-6b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "yi-6b", "h2o-danube-3-4b",
+                                  "mixtral-8x22b"])
 def test_continuous_matches_jax(arch):
     jc, jp, tc, tp = models(arch)
     work = workload()
@@ -84,25 +90,29 @@ def test_continuous_matches_padded():
 
 
 def test_cpu_run_launches_no_kernel():
-    _, _, tc, tp = models("qwen2-1.5b")
-    rms, att = rmsnorm_fused.launches, decode_attention.launches
-    eng = ContinuousEngine(tc, tp, ServeConfig(**SERVE), device="cpu")
-    serve(eng, workload(2))
-    assert eng.stats["decode_steps"] > 0
-    assert (rmsnorm_fused.launches, decode_attention.launches) == (rms, att)
+    for arch in ("qwen2-1.5b", "mixtral-8x22b"):
+        _, _, tc, tp = models(arch)
+        before = (rmsnorm_fused.launches, decode_attention.launches,
+                  moe_gmm.launches)
+        eng = ContinuousEngine(tc, tp, ServeConfig(**SERVE), device="cpu")
+        serve(eng, workload(2))
+        assert eng.stats["decode_steps"] > 0
+        assert (rmsnorm_fused.launches, decode_attention.launches,
+                moe_gmm.launches) == before
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):
     """Without a CUDA device and without device="cpu", entry points
     raise instead of carrying on on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    _, _, tc, tp = models("qwen2-1.5b")
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ContinuousEngine(tc, tp, ServeConfig(**SERVE))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        Engine(tc, tp, ServeConfig(**SERVE))
-    with pytest.raises(RuntimeError, match="CUDA"):
-        tlm.init_params(tc, torch.Generator().manual_seed(0))
+    for arch in ("qwen2-1.5b", "mixtral-8x22b"):
+        _, _, tc, tp = models(arch)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ContinuousEngine(tc, tp, ServeConfig(**SERVE))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Engine(tc, tp, ServeConfig(**SERVE))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tlm.init_params(tc, torch.Generator().manual_seed(0))
 
 
 def test_block_and_slot_recycling():
