@@ -15,16 +15,19 @@ Phases, each printing one JSON line:
    launches over inputs that exceed the L2 cache, timed by CUDA events),
    and the bound; the grouped matmul (moe_gmm) at mixtral's decode and
    prefill-chunk shapes, in the w_out direction at both and at a ragged
-   shape;
+   shape; the Mamba2 SSD scan (mamba2_ssd) at zamba2's prefill shape, a
+   ragged one and one started from a nonzero state, against the
+   sequential oracle;
 4. serve: qwen2-1.5b at full width and depth in bf16, eight requests
    through the continuous-batching engine, with the kernel launches
    counted over that run alone;
    serve_long: long prompts through the padded engine at full width and
-   depth in bf16 — qwen2-1.5b (4 x 4096 tokens) and h2o-danube-3-4b
-   (1 x 8192 tokens, past its 4096-token window) — with prefill and decode
-   wall seconds, peak memory and the launches of all three kernels, then
-   one more prefill of the same prompts with CUDA events around each flash
-   launch: flash attention's device time inside a prefill;
+   depth in bf16 — qwen2-1.5b (4 x 4096 tokens), h2o-danube-3-4b
+   (1 x 8192 tokens, past its 4096-token window) and zamba2-1.2b (4 x 4096
+   tokens: 38 Mamba2 layers, the shared attention block 6 times) — with
+   prefill and decode wall seconds, peak memory and the launches of the
+   kernels, then one more prefill of the same prompts with CUDA events
+   around each flash and SSD launch: their device time inside a prefill;
    serve_moe: mixtral-8x22b at full width with 12 of its 56 layers (one
    card's 80 GB) in bf16, the same eight requests through the
    continuous-batching engine, with the launches of the three kernels on
@@ -39,7 +42,10 @@ Phases, each printing one JSON line:
    plain path, and the same generated tokens; then mixtral-8x22b at full
    width with 1 layer in fp32: one paged prefill chunk and one paged
    decode step through the kernels on the card against the plain versions
-   on the CPU (logits within 1e-3, the same tokens);
+   on the CPU (logits within 1e-3, the same tokens); then zamba2-1.2b at
+   full width with 7 layers in fp32: a 2100-token prefill and 4 decode
+   steps on the card against the CPU's plain path (logits within 1e-3,
+   the same tokens);
 6. the ``{"kernels": [...]}`` summary.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure exits
@@ -100,6 +106,52 @@ FLASH_TOL = {"float32": dict(atol=1e-5, rtol=1e-5, p_round=0.0,
 # limit.
 MOE_TOL = {"float32": dict(rtol=2.0 ** -22, c=2.0 ** -18, rel_rms=2.0 ** -16),
            "bfloat16": dict(rtol=2.0 ** -7, c=2.0 ** -14, rel_rms=2.0 ** -7)}
+# The SSD scan is held to the sequential oracle (ssd_scan_ref, fp32, on
+# the same inputs, from the same h0), y and the final state h alike: per
+# element |out - ref| <= rtol |ref| + c ref_abs, ref_abs being the oracle
+# on |x|, |B|, |C|, |D| and |h0| (the sum of the terms' magnitudes), and
+# ||out - ref|| / ||ref|| <= rel_rms.  In bf16 the kernel rounds y to bf16
+# once: at most 2^-8 |ref| (rtol 2^-7), a relative RMS of about 2^-9.3
+# (rel_rms 2^-8).  Inside, it multiplies its fp32 operands (the masked
+# weights, the state, the decay-weighted x) as two bf16 parts, about 2^-16
+# of each term, and its chunked form takes exp of fp32 segment sums where
+# the oracle multiplies per-step decays: a few 2^-24 per step, about 2^-16
+# of a term at these lengths.  c = 2^-12 leaves a factor of 8 on both;
+# h (fp32, no output rounding) takes rtol 2^-14 and rel_rms 2^-12.  In
+# fp32 (CUDA cores) only the order of the sums and the exp of segment
+# sums differ: rtol 2^-20, c 2^-18, rel_rms 2^-18 (the plain chunked
+# version, chunk 64, uses a tenth of these against the oracle at the
+# ragged and h0 shapes on the CPU).  tools/mamba2_ssd_fault_check.py
+# shows that planted faults fail the limit.
+SSD_TOL = {"float32": {"y": dict(rtol=2.0 ** -20, c=2.0 ** -18,
+                                 rel_rms=2.0 ** -18),
+                       "h": dict(rtol=2.0 ** -20, c=2.0 ** -18,
+                                 rel_rms=2.0 ** -18)},
+           "bfloat16": {"y": dict(rtol=2.0 ** -7, c=2.0 ** -12,
+                                  rel_rms=2.0 ** -8),
+                        "h": dict(rtol=2.0 ** -14, c=2.0 ** -12,
+                                  rel_rms=2.0 ** -12)}}
+
+
+def scaled_limit_use(torch, out, ref, ref_abs, tol):
+    """``out`` against ``ref`` under a limit that scales with each element:
+    |out - ref| <= rtol |ref| + c ref_abs (NaN counts as over the limit)
+    and ||out - ref|| / ||ref|| <= rel_rms; the errors, the share of the
+    limit used and the verdict."""
+    limit = tol["rtol"] * ref.abs() + tol["c"] * ref_abs
+    diff = (out - ref).abs()
+    use = torch.nan_to_num(torch.where(diff == 0, 0.0, diff / limit),
+                           nan=float("inf"))
+    n_over = int((~(diff <= limit)).sum())
+    rel_rms = (diff.norm() / ref.norm()).item()
+    max_use = use.max().item()
+    return {"max_abs_err": diff.max().item(),
+            "max_abs_ref": ref.abs().max().item(),
+            "rel_rms_err": rel_rms, "max_err_over_limit": max_use,
+            "rel_rms_over_limit": rel_rms / tol["rel_rms"],
+            "limit_use": max(max_use, rel_rms / tol["rel_rms"]),
+            "elements_over_limit": n_over,
+            "ok": n_over == 0 and rel_rms <= tol["rel_rms"]}
 
 
 def emit(obj):
@@ -381,26 +433,12 @@ def check_moe_gmm(torch, label, E, C, D, F, dtype, gen, timed=True):
     plain = moe_gmm_ref(x, w, nv).float()
     name = str(dtype).removeprefix("torch.")
     tol = MOE_TOL[name]
-    limit = tol["rtol"] * ref.abs() + tol["c"] * moe_gmm_ref(
-        x.abs().float(), w.abs().float(), nv)
-    diff = (out - ref).abs()
-    use = torch.nan_to_num(torch.where(diff == 0, 0.0, diff / limit),
-                           nan=float("inf"))
-    torch.cuda.synchronize()
-    n_over = int((~(diff <= limit)).sum())
-    rel_rms = (diff.norm() / ref.norm()).item()
-    max_use = use.max().item()
     res = {"kernel": "moe_gmm", "shape": label, "E": E, "C": C, "D": D,
-           "F": F, "dtype": name, "n_valid": nv.tolist(),
-           "max_abs_err": diff.max().item(), "max_abs_ref": ref.abs().max()
-           .item(), "max_abs_err_vs_plain_out": (out - plain).abs().max()
-           .item(),
-           "rel_rms_err": rel_rms, "max_err_over_limit": max_use,
-           "rel_rms_over_limit": rel_rms / tol["rel_rms"],
-           "limit_use": max(max_use, rel_rms / tol["rel_rms"]),
-           "elements_over_limit": n_over, "tol": tol,
-           "ok": n_over == 0 and rel_rms <= tol["rel_rms"]}
-    del out, ref, plain, limit, diff, use
+           "F": F, "dtype": name, "n_valid": nv.tolist(), "tol": tol,
+           **scaled_limit_use(torch, out, ref, moe_gmm_ref(
+               x.abs().float(), w.abs().float(), nv), tol),
+           "max_abs_err_vs_plain_out": (out - plain).abs().max().item()}
+    del out, ref, plain
     if not timed:
         return res
     elem = x.element_size()
@@ -415,6 +453,102 @@ def check_moe_gmm(torch, label, E, C, D, F, dtype, gen, timed=True):
     bnd, by = bound_ms(nbytes, ops, name)
     res.update({"library_call": "torch.bmm(x, w) (all rows: it takes no "
                                 "n_valid)",
+                "bound_ms": bnd, "bound_by": by, "ops": ops,
+                "bytes": nbytes})
+    del sets
+    torch.cuda.empty_cache()
+    return res
+
+
+def ssd_bytes_ops(b, S, H, P, N, elem, with_h0):
+    """Bytes: x, dt, B, C, A, D (and h0) read once, y and the final state
+    written once.  Operations: 4 P N per position and head, what the scan
+    needs in any form: the recurrence takes 3 P N for the state update and
+    2 P N for C h, the chunked form at chunk l takes 2 l (N + P) + 4 P N,
+    falling to 4 P N as l shrinks.  Independent of the kernel's chunk."""
+    nbytes = (2 * b * S * H * P + 2 * b * S * N) * elem + b * S * H * 4 \
+        + 2 * H * 4 + (2 if with_h0 else 1) * b * H * P * N * 4
+    return nbytes, 4 * b * S * H * P * N
+
+
+def ssd_inputs(torch, b, S, H, P, N, dtype, gen, with_h0):
+    """zamba2-like inputs in the model layout: x, B and C are views of one
+    (b, S, H P + 2 N) conv output, N(0, 1); dt = softplus(0.5 N(0, 1) +
+    log(expm1(0.01))), about 0.01 as zamba2's initial step; A = -exp of
+    linspace(log 1, log 16), as its A_log; D ~ N(0, 1); h0 ~ N(0, 1) or
+    None."""
+    dev = "cuda"
+    xbc = torch.randn((b, S, H * P + 2 * N), generator=gen,
+                      device=dev).to(dtype)
+    x = xbc[..., :H * P].unflatten(-1, (H, P))
+    B = xbc[..., H * P:H * P + N]
+    C = xbc[..., H * P + N:]
+    dt = torch.nn.functional.softplus(
+        0.5 * torch.randn((b, S, H), generator=gen, device=dev)
+        + float(np.log(np.expm1(0.01))))
+    A = -torch.exp(torch.linspace(0.0, float(np.log(16.0)), H, device=dev))
+    D = torch.randn((H,), generator=gen, device=dev)
+    h0 = (torch.randn((b, H, P, N), generator=gen, device=dev)
+          if with_h0 else None)
+    return x, dt, B, C, A, D, h0
+
+
+def check_mamba2_ssd(torch, label, b, S, H, P, N, with_h0, dtype, gen,
+                     timed=True):
+    """The SSD scan against the sequential oracle at one shape (y and the
+    final state, SSD_TOL), with its and the plain version's device times
+    (only the agreement when ``timed`` is false).  No single PyTorch call
+    computes the scan, so there is no library time."""
+    from repro_torch.kernels.mamba2_ssd.ops import CHUNK, mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd.ref import (mamba2_ssd_ref,
+                                                    ssd_scan_ref)
+    x, dt, B, C, A, D, h0 = ssd_inputs(torch, b, S, H, P, N, dtype, gen,
+                                       with_h0)
+    # The outputs' memory is filled with NaN first (the allocator hands
+    # the freed blocks back), so an element the kernel leaves unwritten
+    # fails.
+    poison = [torch.full((b, S, H, P), float("nan"), dtype=dtype,
+                         device="cuda"),
+              torch.full((b, H, P, N), float("nan"), device="cuda")]
+    del poison
+    y, h = mamba2_ssd(x, dt, B, C, A, D, h0=h0)
+    xt = x.float().transpose(1, 2)
+    dtt = dt.transpose(1, 2)
+    y_ref, h_ref = ssd_scan_ref(xt, dtt, B.float(), C.float(), A, D, h0)
+    y_abs, h_abs = ssd_scan_ref(xt.abs(), dtt, B.float().abs(),
+                                C.float().abs(), A, D.abs(),
+                                None if h0 is None else h0.abs())
+    name = str(dtype).removeprefix("torch.")
+    res = {"kernel": "mamba2_ssd", "shape": label, "b": b, "S": S, "H": H,
+           "P": P, "N": N, "h0": with_h0, "dtype": name,
+           "chunk": CHUNK[dtype], "tol": SSD_TOL[name]}
+    for key, out, ref, ref_abs in (
+            ("y", y.float().transpose(1, 2), y_ref, y_abs),
+            ("h", h, h_ref, h_abs)):
+        got = scaled_limit_use(torch, out, ref, ref_abs, SSD_TOL[name][key])
+        res.update({f"{key}_{k}": v for k, v in got.items()})
+    res.update({"max_abs_err": res["y_max_abs_err"],
+                "limit_use": max(res["y_limit_use"], res["h_limit_use"]),
+                "ok": res["y_ok"] and res["h_ok"]})
+    del y, h, y_ref, h_ref, y_abs, h_abs, xt
+    if not timed:
+        return res
+    elem = x.element_size()
+    nbytes, ops = ssd_bytes_ops(b, S, H, P, N, elem, with_h0)
+    full = (x.numel() + B.numel() + C.numel()) * elem + dt.numel() * 4
+    sets = []
+    for _ in range(copies_for(full)):
+        xc, dtc, Bc, Cc, _, _, _ = ssd_inputs(torch, b, S, H, P, N, dtype,
+                                              gen, False)
+        sets.append((xc, dtc, Bc, Cc, A, D, h0))
+    for key, fn in {"ms": lambda *a: mamba2_ssd(*a[:6], h0=a[6]),
+                    "plain_ms": mamba2_ssd_ref}.items():
+        res[key] = device_ms(torch, fn, sets,
+                             reps=auto_reps(torch, fn, sets[0]), rounds=3)
+    bnd, by = bound_ms(nbytes, ops, name)
+    res.update({"library_ms": None,
+                "library_call": "none: no single PyTorch call computes the "
+                                "SSD scan",
                 "bound_ms": bnd, "bound_by": by, "ops": ops,
                 "bytes": nbytes})
     del sets
@@ -532,14 +666,29 @@ def phase_serve(torch, arch="qwen2-1.5b", n_layers=None):
 
 # (arch, prompts, prompt length, new tokens): the padded engine's long
 # prompts at full width and depth.  Danube's prompt is twice its window, so
-# its prefill fills the ring cache.
-SERVE_LONG = [("qwen2-1.5b", 4, 4096, 16), ("h2o-danube-3-4b", 1, 8192, 8)]
+# its prefill fills the ring cache.  zamba2 (hybrid) serves long documents
+# through this engine only (its SSM state does not page).
+SERVE_LONG = [("qwen2-1.5b", 4, 4096, 16), ("h2o-danube-3-4b", 1, 8192, 8),
+              ("zamba2-1.2b", 4, 4096, 16)]
+
+
+def padded_launches(cfg):
+    """Kernel launches of one padded-engine dispatch: rmsnorm per prefill
+    or decode step; flash attention and the SSD scan per long prefill."""
+    from repro_torch.models import lm as lm_lib
+    L = cfg.n_layers
+    if cfg.family == "hybrid":
+        apps = sum(1 for seg in lm_lib._hybrid_segments(cfg) if seg[2])
+        return {"rmsnorm": L + 2 * apps + 1, "flash_attention": apps,
+                "mamba2_ssd": L}
+    return {"rmsnorm": 2 * L + 1, "flash_attention": L, "mamba2_ssd": 0}
 
 
 def phase_serve_long(torch, arch, n_prompts, prompt_len, new_tokens):
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd
     from repro_torch.kernels.rmsnorm.ops import rmsnorm_fused
     from repro_torch.models import lm as lm_lib
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -559,23 +708,28 @@ def phase_serve_long(torch, arch, n_prompts, prompt_len, new_tokens):
     rmsnorm_fused.launches = 0
     decode_attention.launches = 0
     flash_attention.launches = 0
+    mamba2_ssd.launches = 0
     t0 = time.perf_counter()
     out = eng.generate(prompts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"rmsnorm": rmsnorm_fused.launches,
                 "decode_attention": decode_attention.launches,
-                "flash_attention": flash_attention.launches}
+                "flash_attention": flash_attention.launches,
+                "mamba2_ssd": mamba2_ssd.launches}
     peak = torch.cuda.max_memory_allocated()
     prefill_s, decode_s = eng.timing["prefill_s"], eng.timing["decode_s"]
     L = cfg.n_layers
-    want = {"rmsnorm": (2 * L + 1) * new_tokens, "decode_attention": 0,
-            "flash_attention": L}
+    per = padded_launches(cfg)
+    want = {"rmsnorm": per["rmsnorm"] * new_tokens, "decode_attention": 0,
+            "flash_attention": per["flash_attention"],
+            "mamba2_ssd": per["mamba2_ssd"]}
 
     # One more prefill of the same prompts, with CUDA events around each
-    # flash launch: its logits are checked, and the events give flash
-    # attention's device time inside a prefill.
+    # flash and SSD launch: its logits are checked, and the events give
+    # the kernels' device time inside a prefill.
     flash_attention.events = []
+    mamba2_ssd.events = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, _ = lm_lib.prefill(
@@ -585,7 +739,9 @@ def phase_serve_long(torch, arch, n_prompts, prompt_len, new_tokens):
     torch.cuda.synchronize()
     traced_s = time.perf_counter() - t0
     flash_ms = [a.elapsed_time(b) for a, b in flash_attention.events]
+    ssd_ms = [a.elapsed_time(b) for a, b in mamba2_ssd.events]
     flash_attention.events = None
+    mamba2_ssd.events = None
     finite = bool(torch.isfinite(logits).all())
     tokens_ok = (out.shape == (n_prompts, new_tokens)
                  and bool(((out >= 0) & (out < cfg.vocab_size)).all()))
@@ -604,12 +760,19 @@ def phase_serve_long(torch, arch, n_prompts, prompt_len, new_tokens):
            "traced_flash_s": sum(flash_ms) / 1e3,
            "traced_flash_ms_per_launch": statistics.median(flash_ms),
            "traced_flash_share": sum(flash_ms) / 1e3 / traced_s,
+           "traced_ssd_launches": len(ssd_ms),
+           "traced_ssd_s": sum(ssd_ms) / 1e3,
+           "traced_ssd_ms_per_launch": (statistics.median(ssd_ms)
+                                        if ssd_ms else None),
+           "traced_ssd_share": sum(ssd_ms) / 1e3 / traced_s,
            "logits_finite": finite, "tokens_ok": tokens_ok,
            "first_tokens": out[:, :4].tolist()}
     emit(res)
-    if launches != want or len(flash_ms) != L:
+    if (launches != want or len(flash_ms) != want["flash_attention"]
+            or len(ssd_ms) != want["mamba2_ssd"]):
         raise RuntimeError(f"kernel launches {launches} != expected {want}"
-                           f" (traced prefill: {len(flash_ms)} flash)")
+                           f" (traced prefill: {len(flash_ms)} flash, "
+                           f"{len(ssd_ms)} mamba2_ssd)")
     if not (finite and tokens_ok):
         raise RuntimeError(f"serve_long {arch}: logits finite {finite}, "
                            f"tokens {out.tolist()}")
@@ -811,6 +974,66 @@ def phase_model_check_moe(torch):
     torch.cuda.empty_cache()
 
 
+def phase_model_check_hybrid(torch):
+    """zamba2-1.2b at full width, 7 layers (a full run of 6 with the
+    shared block after it, then a trailing layer), fp32: a 2100-token
+    prefill (the shared block's long branch) and 4 decode steps through
+    the kernels on the card and through the plain versions on the CPU:
+    logits within 1e-3 at every step, the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba2_ssd.ops import mamba2_ssd
+    from repro_torch.models import lm as lm_lib
+
+    cfg = dataclasses.replace(get_config("zamba2-1.2b"), n_layers=7,
+                              dtype="float32")
+    params = lm_lib.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(8), "cuda")
+    cpu_params = to_cpu(params)
+    prompt = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (1, 2100), dtype=np.int64)
+    tokens = torch.as_tensor(prompt)
+    max_len = 2100 + 4
+    mamba2_ssd.launches = 0
+    flash_attention.launches = 0
+    lk, ck = lm_lib.prefill(params, cfg, {"tokens": tokens.cuda()}, max_len)
+    launches = {"mamba2_ssd": mamba2_ssd.launches,
+                "flash_attention": flash_attention.launches}
+    lp, cp = lm_lib.prefill(cpu_params, cfg, {"tokens": tokens}, max_len)
+    errs, toks_k, toks_p = [], [], []
+    finite = True
+    for i in range(5):
+        lkc = lk.cpu()
+        errs.append((lkc - lp).abs().max().item())
+        finite &= bool(torch.isfinite(lkc).all())
+        tk = lkc[..., :cfg.vocab_size].argmax(-1)
+        tp = lp[..., :cfg.vocab_size].argmax(-1)
+        toks_k.append(int(tk[0, 0]))
+        toks_p.append(int(tp[0, 0]))
+        if i == 4:
+            break
+        lk, ck = lm_lib.decode_step(params, cfg, {"tokens": tk.cuda()}, ck,
+                                    2100 + i)
+        lp, cp = lm_lib.decode_step(cpu_params, cfg, {"tokens": tp}, cp,
+                                    2100 + i)
+    state_err = (ck["mamba"]["ssd"].cpu() - cp["mamba"]["ssd"]).abs().max() \
+        .item()
+    same = toks_k == toks_p
+    out = {"phase": "model_check_hybrid", "model": cfg.name, "n_layers": 7,
+           "n_params": cfg.n_params(), "dtype": "float32",
+           "allow_tf32": False, "prompt_len": 2100, "decode_steps": 4,
+           "logits_max_abs_err": errs, "ssd_state_max_abs_err": state_err,
+           "atol": 1e-3, "finite": finite, "prefill_launches": launches,
+           "tokens_card": toks_k, "tokens_cpu": toks_p,
+           "tokens_equal": same}
+    emit(out)
+    if not (same and finite and max(errs) <= 1e-3
+            and launches == {"mamba2_ssd": 7, "flash_attention": 1}):
+        raise RuntimeError("hybrid whole-model check failed")
+    del params, cpu_params, ck, cp
+    torch.cuda.empty_cache()
+
+
 # --------------------------------------------------------------------- #
 
 RMSNORM_CASES = [(R, D) for D in (1536, 3840, 48) for R in (8, 64, 4096)]
@@ -825,6 +1048,7 @@ FLASH_CASES = [  # (label, B, H, KH, S, T, D, window)
     ("danube", 2, 32, 8, 8192, 8192, 120, 4096),
     ("offset", 2, 12, 2, 100, 2100, 128, None),
     ("tiny", 1, 3, 1, 2048, 2048, 16, None),
+    ("zamba2", 4, 32, 32, 4096, 4096, 64, None),
 ]
 MOE_CASES = [  # (label, E, C, D, F): mixtral's experts and a ragged shape
     ("decode", 8, 8, 6144, 16384),
@@ -833,10 +1057,16 @@ MOE_CASES = [  # (label, E, C, D, F): mixtral's experts and a ragged shape
     ("w_out_decode", 8, 8, 16384, 6144),
     ("ragged", 5, 37, 200, 300),
 ]
+SSD_CASES = [  # (label, b, S, H, P, N, h0)
+    ("zamba2_prefill", 4, 4096, 64, 64, 64, True),   # the served call
+    ("ragged", 2, 1000, 8, 64, 64, False),           # a tail of S
+    ("h0", 1, 300, 4, 16, 16, True),                 # a nonzero h0
+]
 MAIN_PATH = {"rmsnorm": (8, 1536, "bfloat16"),
              "decode_attention": ("serving", "bfloat16"),
              "flash_attention": ("qwen2", "bfloat16"),
-             "moe_gmm": ("decode", "bfloat16")}
+             "moe_gmm": ("decode", "bfloat16"),
+             "mamba2_ssd": ("zamba2_prefill", "bfloat16")}
 
 
 def main() -> int:
@@ -901,6 +1131,10 @@ def main() -> int:
             r = check_moe_gmm(torch, *case, dtype, gen)
             emit({"phase": "kernels", **r})
             results.append(r)
+        for case in SSD_CASES:
+            r = check_mamba2_ssd(torch, *case, dtype, gen)
+            emit({"phase": "kernels", **r})
+            results.append(r)
     bad = [r for r in results if not r["ok"]]
     if bad:
         raise RuntimeError(f"{len(bad)} kernel checks disagree with the "
@@ -910,10 +1144,13 @@ def main() -> int:
     long_runs = [phase_serve_long(torch, *case) for case in SERVE_LONG]
     # flash attention's launches on the main path: the qwen2 long-prompt run
     launches["flash_attention"] = long_runs[0]["launches"]["flash_attention"]
+    # the SSD scan's: the zamba2 long-prompt run
+    launches["mamba2_ssd"] = long_runs[2]["launches"]["mamba2_ssd"]
     launches["moe_gmm"] = phase_serve(torch, MOE_ARCH, MOE_LAYERS)["moe_gmm"]
     phase_model_check(torch)
     phase_model_check_long(torch)
     phase_model_check_moe(torch)
+    phase_model_check_hybrid(torch)
 
     def pick(name):
         if name == "rmsnorm":
@@ -935,6 +1172,8 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:87"),
         "moe_gmm": ("src/repro_torch/kernels/csrc/moe_gmm.cu",
                     "src/repro/kernels/moe_gmm/kernel.py:37"),
+        "mamba2_ssd": ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+                       "src/repro/kernels/mamba2_ssd/kernel.py:76"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -1,4 +1,5 @@
-"""Config schema: model architecture (the dense and MoE families' fields)."""
+"""Config schema: model architecture (the dense, MoE and hybrid families'
+fields)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 class ModelConfig:
     # identity
     name: str = "model"
-    family: str = "dense"          # "dense" or "moe" (non-MLA) are ported
+    family: str = "dense"          # "dense", "moe" (non-MLA) and "hybrid"
+    #                                (zamba2) are ported
 
     # trunk
     n_layers: int = 2
@@ -41,6 +43,13 @@ class ModelConfig:
     router_aux_coef: float = 0.001
     moe_groups: int = 1              # dispatch groups (1 on one card)
 
+    # Mamba2 / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_headdim: int = 64
+    ssm_expand: int = 2
+    shared_attn_every: int = 0       # zamba2: shared attn block cadence
+
     # numerics
     dtype: str = "bfloat16"
 
@@ -60,10 +69,10 @@ class ModelConfig:
         return getattr(torch, self.dtype)
 
     def n_params(self) -> int:
-        """Parameter count from the dense or MoE family's shapes."""
-        if self.family not in ("dense", "moe"):
+        """Parameter count from the dense, MoE or hybrid family's shapes."""
+        if self.family not in ("dense", "moe", "hybrid"):
             raise NotImplementedError(
-                f"n_params covers the dense and moe families, not "
+                f"n_params covers the dense, moe and hybrid families, not "
                 f"{self.family}")
         d, h, kh, hd = self.d_model, self.n_heads, self.n_kv_heads, \
             self.head_dim
@@ -78,4 +87,14 @@ class ModelConfig:
             ffn = n_mats * d * self.d_ff
         block = 2 * d + attn + ffn
         tables = 1 if self.tie_embeddings else 2
-        return tables * self.padded_vocab * d + d + self.n_layers * block
+        head = tables * self.padded_vocab * d + d
+        if self.family != "hybrid":
+            return head + self.n_layers * block
+        # zamba2: a stack of Mamba2 blocks plus one shared dense block
+        d_inner = self.ssm_expand * d
+        nheads = d_inner // self.ssm_headdim
+        conv_ch = d_inner + 2 * self.ssm_state
+        mamba = (d + d * (2 * d_inner + 2 * self.ssm_state + nheads)
+                 + (self.ssm_conv + 1) * conv_ch + 3 * nheads + d_inner
+                 + d_inner * d)
+        return head + self.n_layers * mamba + block

@@ -8,7 +8,9 @@ Drives :class:`repro_torch.serve.engine.ContinuousEngine` at the arch's
 ``tiny()`` size on a mixed workload (per-request budgets, staggered
 arrivals) and reports aggregate tokens/s plus p50/p99 request latency;
 ``--engine padded`` runs the fixed-batch baseline on the same prompts.
-Runs on the card unless ``--device cpu`` is given.
+The hybrid family (``--arch zamba2-1.2b``) serves through the padded
+engine only: its SSM state does not page, and the continuous engine
+refuses it.  Runs on the card unless ``--device cpu`` is given.
 """
 
 import argparse
@@ -71,7 +73,11 @@ def main():
                      n_blocks=slots * pages + 1, max_slots=slots,
                      prefill_chunk=min(16, args.prompt_len),
                      prefill_batch=min(4, slots))
-    eng = ContinuousEngine(cfg, params, sc, dev)
+    try:
+        eng = ContinuousEngine(cfg, params, sc, dev)
+    except NotImplementedError as e:
+        raise SystemExit(f"[serve/continuous] {cfg.name}: {e}; use "
+                         f"--engine padded") from e
 
     def workload():
         eng.reset()

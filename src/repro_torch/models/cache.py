@@ -1,4 +1,5 @@
-"""Decode-time GQA KV caches: full-length or SWA ring, and the paged pool.
+"""Decode-time caches: GQA KV (full-length or SWA ring), the paged pool,
+and the Mamba2 state.
 
 Caches are dicts of tensors that the attention layers update in place.
 Slot bookkeeping uses an explicit ``slot_pos`` array ((S_cache,) int32,
@@ -12,19 +13,37 @@ from __future__ import annotations
 import torch
 
 
-def init_kv_cache(cfg, batch, max_len, dtype=None, device=None):
+def init_kv_cache(cfg, batch, max_len, dtype=None, device=None,
+                  n_layers=None):
     """Full-length (or SWA ring) KV cache for one attention layer stack,
-    with a leading layer dim."""
+    with a leading layer dim (``n_layers``, default ``cfg.n_layers``)."""
     dt = dtype or cfg.act_dtype
+    nl = n_layers if n_layers is not None else cfg.n_layers
     kh, hd = cfg.n_kv_heads, cfg.head_dim
     s = max_len if cfg.window is None else min(cfg.window, max_len)
     return {
-        "k": torch.zeros((cfg.n_layers, batch, s, kh, hd), dtype=dt,
-                         device=device),
-        "v": torch.zeros((cfg.n_layers, batch, s, kh, hd), dtype=dt,
-                         device=device),
-        "slot_pos": torch.full((cfg.n_layers, s), -1, dtype=torch.int32,
+        "k": torch.zeros((nl, batch, s, kh, hd), dtype=dt, device=device),
+        "v": torch.zeros((nl, batch, s, kh, hd), dtype=dt, device=device),
+        "slot_pos": torch.full((nl, s), -1, dtype=torch.int32,
                                device=device),
+    }
+
+
+def init_ssm_state(cfg, batch, n_layers=None, dtype=None, device=None):
+    """Mamba2 state with a leading layer dim: the causal conv's last
+    ``ssm_conv - 1`` inputs in the activation type, and the SSD state
+    (B, H, P, N) in fp32."""
+    dt = dtype or cfg.act_dtype
+    nl = n_layers if n_layers is not None else cfg.n_layers
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_headdim
+    conv_ch = d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": torch.zeros((nl, batch, cfg.ssm_conv - 1, conv_ch), dtype=dt,
+                            device=device),
+        "ssd": torch.zeros((nl, batch, nheads, cfg.ssm_headdim,
+                            cfg.ssm_state), dtype=torch.float32,
+                           device=device),
     }
 
 

@@ -1,8 +1,9 @@
 """Block assembly and layer stacks.
 
 Block kinds:
-  dense — GQA attn + MLP       (qwen2, yi, danube)
+  dense — GQA attn + MLP       (qwen2, yi, danube, zamba2's shared block)
   moe   — GQA attn + MoE FFN   (mixtral)
+  mamba — Mamba2 mixer only    (zamba2 backbone)
 
 A stack is a list of per-layer parameter dicts, applied by a Python loop
 over layers (the JAX package scans stacked parameters).  A cache, where
@@ -14,12 +15,16 @@ from __future__ import annotations
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import init_mlp, init_rmsnorm, mlp, rmsnorm
 
 ATTN_KINDS = {"dense", "moe"}
 
 
 def init_block(generator, cfg, kind, device=None, dtype=None):
+    if kind == "mamba":
+        return {"mamba_norm": init_rmsnorm(cfg.d_model, device),
+                "mamba": ssm_lib.init_mamba2(generator, cfg, device, dtype)}
     if kind not in ATTN_KINDS:
         raise NotImplementedError(f"block kind {kind} is not ported yet")
     p = {"attn_norm": init_rmsnorm(cfg.d_model, device),
@@ -40,7 +45,9 @@ def _mix(params, cfg, kind, x, positions, mode, t=None, cache=None):
         if mode in ("paged_prefill", "paged_decode"):
             raise ValueError(f"paged KV serving is GQA-only; {kind} caches "
                              f"(MLA latent / SSM state) are linear-only")
-        raise NotImplementedError(f"block kind {kind} is not ported yet")
+        if kind != "mamba":
+            raise NotImplementedError(f"block kind {kind} is not ported yet")
+        return _mamba_mix(params, cfg, x, mode, cache)
     h = rmsnorm(params["attn_norm"], x, cfg.norm_eps)
     if mode == "prefill":
         return attn.gqa_prefill(params["attn"], cfg, h, positions, cache)
@@ -53,11 +60,27 @@ def _mix(params, cfg, kind, x, positions, mode, t=None, cache=None):
     raise NotImplementedError(f"mode {mode} is not ported yet")
 
 
+def _mamba_mix(params, cfg, x, mode, state):
+    """The Mamba2 mixer; its conv and SSD state are updated in place."""
+    h = rmsnorm(params["mamba_norm"], x, cfg.norm_eps)
+    if mode == "prefill":
+        y, new = ssm_lib.mamba2_forward(params["mamba"], cfg, h, state)
+    elif mode == "decode":
+        y, new = ssm_lib.mamba2_decode(params["mamba"], cfg, h, state)
+    else:
+        raise NotImplementedError(f"mode {mode} is not ported yet")
+    state["conv"].copy_(new["conv"])
+    state["ssd"].copy_(new["ssd"])
+    return y, state
+
+
 def block_apply(params, cfg, kind, x, positions, mode, t=None, cache=None):
     """One block. Returns (x, cache); the serving modes drop the MoE aux
     loss."""
     y, cache = _mix(params, cfg, kind, x, positions, mode, t, cache)
     x = x + y
+    if kind == "mamba":
+        return x, cache
     if kind == "moe":
         h = rmsnorm(params["moe_norm"], x, cfg.norm_eps)
         y, _aux = moe_lib.moe_ffn(params["moe"], cfg, h)

@@ -15,6 +15,7 @@ atol = rtol = 1e-5 for attention, 1e-4 for logits after whole layers
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +26,12 @@ from repro.configs import get_tiny as jax_tiny
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro.models import attention as jattn
-from repro.serve.engine import Engine as JaxEngine
-from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro_torch.configs import get_tiny
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import attention as tattn
 from repro_torch.models import lm as tlm
 from repro_torch.serve.engine import Engine, ServeConfig
-from test_torch_serve import models
+from test_torch_serve import jax_padded_engine, models, on_threads
 
 ATTN_TOL = dict(atol=1e-5, rtol=1e-5)
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -50,11 +49,29 @@ def swap(x):
     return jnp.swapaxes(jnp.asarray(x), 1, 2)
 
 
-@pytest.mark.parametrize("b,h,kh,s,t,d,window", [
+FLASH_CASES = [
     (1, 3, 1, 2048, 2048, 16, None),     # qwen2-tiny grouping, S = T
     (1, 3, 1, 2048, 2048, 16, 16),       # S >> window: the oldest key
     (2, 4, 2, 100, 1124, 16, None),      # offset T - S, ragged tails
-])
+]
+
+
+@functools.cache
+def flash_refs():
+    """The Pallas kernel's (interpret mode) and the oracle's outputs for
+    every case, computed on threads so that their compiles overlap."""
+    def refs(b, h, kh, s, t, d, window):
+        q, k, v = qkv(0, b, h, kh, s, t, d)
+        pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           n_kv_heads=kh, window=window, interpret=True)
+        ref = jax_ref(swap(q), swap(k), swap(v), n_kv_heads=kh,
+                      window=window)
+        return np.asarray(pallas), np.asarray(jnp.swapaxes(ref, 1, 2))
+
+    return on_threads(refs, FLASH_CASES)
+
+
+@pytest.mark.parametrize("b,h,kh,s,t,d,window", FLASH_CASES)
 def test_flash_matches_jax(b, h, kh, s, t, d, window):
     q, k, v = qkv(0, b, h, kh, s, t, d)
     before = flash_attention.launches
@@ -63,12 +80,9 @@ def test_flash_matches_jax(b, h, kh, s, t, d, window):
     assert flash_attention.launches == before    # plain version, no kernel
     assert out.shape == (b, s, h, d) and out.dtype == torch.float32
     got = out.numpy()
-    pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                       n_kv_heads=kh, window=window, interpret=True)
-    np.testing.assert_allclose(got, np.asarray(pallas), **ATTN_TOL)
-    ref = jax_ref(swap(q), swap(k), swap(v), n_kv_heads=kh, window=window)
-    np.testing.assert_allclose(got, np.asarray(jnp.swapaxes(ref, 1, 2)),
-                               **ATTN_TOL)
+    pallas, ref = flash_refs()[b, h, kh, s, t, d, window]
+    np.testing.assert_allclose(got, pallas, **ATTN_TOL)
+    np.testing.assert_allclose(got, ref, **ATTN_TOL)
 
 
 def configs(arch):
@@ -131,7 +145,7 @@ def test_padded_engine_long_prompts_match_jax(arch):
     if tc.window is not None:
         assert LONG > tc.window
     sc = dict(max_prompt=LONG, max_new_tokens=4)
-    jeng = JaxEngine(jc, jp, JaxServeConfig(**sc))
+    jeng = jax_padded_engine(jc, jp, prompts, **sc)
     want = jeng.generate(prompts)
     eng = Engine(tc, tp, ServeConfig(**sc), device="cpu")
     got = eng.generate(prompts)

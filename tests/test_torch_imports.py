@@ -65,7 +65,9 @@ def test_port_has_the_slice_modules():
                 "kernels/flash_attention/ops.py",
                 "kernels/flash_attention/ref.py", "kernels/moe_gmm/ops.py",
                 "kernels/moe_gmm/ref.py", "models/moe.py",
-                "configs/mixtral_8x22b.py", "models/convert.py",
+                "configs/mixtral_8x22b.py", "configs/zamba2_1p2b.py",
+                "kernels/mamba2_ssd/ops.py", "kernels/mamba2_ssd/ref.py",
+                "models/ssm.py", "models/convert.py",
                 "serve/engine.py", "launch/serve.py", "core/datatypes.py"):
         assert mod in names
 

@@ -23,8 +23,6 @@ from repro.kernels.moe_gmm.ops import moe_gmm as jax_moe_gmm
 from repro.kernels.moe_gmm.ref import moe_gmm_ref as jax_moe_gmm_ref
 from repro.models import lm as jlm
 from repro.models import moe as jmoe
-from repro.serve.engine import Engine as JaxEngine
-from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro_torch.configs import get_config, get_tiny
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ops import moe_gmm
@@ -32,7 +30,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 from repro_torch.models.convert import tree_from_numpy
 from repro_torch.serve.engine import Engine, ServeConfig
-from test_torch_serve import models
+from test_torch_serve import jax_padded_engine, models
 
 ARCH = "mixtral-8x22b"
 GMM_TOL = dict(atol=2e-5, rtol=2e-5)        # tests/test_kernels.py, fp32
@@ -267,14 +265,14 @@ def test_padded_engine_matches_jax():
                                                 dtype=np.int32)
     sc = dict(max_prompt=12, max_new_tokens=8)
     assert 12 + 8 > tc.window
-    want = JaxEngine(jc, jp, JaxServeConfig(**sc)).generate(prompts)
+    want = jax_padded_engine(jc, jp, prompts, **sc).generate(prompts)
     got = Engine(tc, tp, ServeConfig(**sc), device="cpu").generate(prompts)
     np.testing.assert_array_equal(got, want)
 
 
 def test_other_families_still_refused():
-    cfg = dataclasses.replace(get_tiny(ARCH), family="hybrid")
-    with pytest.raises(NotImplementedError, match="hybrid"):
+    cfg = dataclasses.replace(get_tiny(ARCH), family="ssm")
+    with pytest.raises(NotImplementedError, match="ssm"):
         tlm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError):
         cfg.n_params()

@@ -10,8 +10,10 @@ and to the recycling and admission rules of the JAX engine's cases.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ import torch
 from repro.configs import get_tiny as jax_tiny
 from repro.models import lm as jlm
 from repro.serve.engine import ContinuousEngine as JaxContinuousEngine
+from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro_torch.configs import get_tiny
 from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -28,6 +31,13 @@ from repro_torch.models import lm as tlm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.serve.engine import ContinuousEngine, Engine, ServeConfig
 from repro_torch.serve.scheduler import DECODE, PREFILL, Request, Scheduler
+
+# Start torch's intra-op thread pool before any test computes: the first
+# parallel kernels of a newly started pool have been seen, on a virtual
+# machine, to return exp off by about 1e-4 (relative) in some threads'
+# shares, where every later call is right.
+torch.exp(torch.zeros(1 << 17))
+torch.zeros(1 << 17).add_(1)
 
 SERVE = dict(max_prompt=16, max_new_tokens=10, eos_id=-1, block_size=4,
              n_blocks=24, max_slots=4, prefill_chunk=6, prefill_batch=3)
@@ -50,6 +60,34 @@ def models(arch):
         tp = params_from_numpy(jax.tree.map(np.asarray, jp), tc, "cpu")
         _CTX[arch] = (jc, jp, tc, tp)
     return _CTX[arch]
+
+
+def on_threads(fn, cases, workers=4):
+    """``fn(*case)`` for every case on threads, so that the JAX compiles
+    they start overlap (XLA compiles without the GIL): {case: result}."""
+    with ThreadPoolExecutor(workers) as pool:
+        done = {case: pool.submit(fn, *case) for case in cases}
+        return {case: f.result() for case, f in done.items()}
+
+
+def jax_padded_engine(jc, jp, prompts, **sc):
+    """The JAX padded engine for ``prompts``, its decode step compiled on
+    a second thread while its prefill compiles (XLA compiles without the
+    GIL): ``generate`` then finds both compiled."""
+    eng = JaxEngine(jc, jp, JaxServeConfig(**sc))
+    batch = {"tokens": jnp.asarray(prompts)}
+    _, caches = jax.eval_shape(eng._prefill, jp, batch)
+
+    def decode():
+        eng._decode(jp, {"tokens": jnp.zeros((len(prompts), 1), jnp.int32)},
+                    jax.tree.map(lambda a: jnp.zeros(a.shape, a.dtype),
+                                 caches), prompts.shape[1])
+
+    with ThreadPoolExecutor(1) as pool:
+        done = pool.submit(decode)
+        eng._prefill(jp, batch)
+        done.result()
+    return eng
 
 
 def workload(seed=0):
